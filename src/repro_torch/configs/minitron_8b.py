@@ -1,0 +1,9 @@
+"""minitron-8b [arXiv:2407.14679]: 32L d=4096 32H (GQA kv=8) ff=16384
+vocab=256000 (pruned nemotron)."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-8b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=16384, vocab=256000,
+)

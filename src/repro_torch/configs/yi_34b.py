@@ -1,0 +1,9 @@
+"""yi-34b [arXiv:2403.04652]: 60L d=7168 56H (GQA kv=8) ff=20480 vocab=64000
+(llama-arch GQA)."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b", family="dense",
+    n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8, d_head=128,
+    d_ff=20480, vocab=64000, rope_theta=5e6,
+)

@@ -1,0 +1,108 @@
+"""Build and load the CUDA kernels (``csrc/*.cu``) as one shared library.
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` in parallel, the objects
+are linked into ``_build/libtcm_kernels_<hash>.so`` (the hash covers the
+sources and flags, so an edited source rebuilds), and the library is loaded
+with ``ctypes`` on first use.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+ptxas_log = ""  # register / shared-memory report of the last build
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` (one ``nvcc`` per source, all at once) and link
+    them into one shared library; returns its path.  Raises on any compiler
+    error, with the compiler's output."""
+    global ptxas_log
+    out = BUILD_DIR / f"libtcm_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, p in procs:
+        text, _ = p.communicate()
+        logs.append(f"== {src.name}\n{text}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    ptxas_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{ptxas_log}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = ctypes.CDLL(str(build()))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            i64p = ctypes.POINTER(ctypes.c_longlong)
+            so.tcm_matmul_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+            so.tcm_matmul_launch.restype = i
+            so.tcm_flash_attention_launch.argtypes = [
+                p, p, p, p, i, i, i, i, i, i, i64p, i64p, i64p, i, i, i, f,
+                i, p]
+            so.tcm_flash_attention_launch.restype = i
+            so.tcm_error_string.argtypes = [i]
+            so.tcm_error_string.restype = ctypes.c_char_p
+            _lib = so
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib().tcm_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
