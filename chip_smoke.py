@@ -2,15 +2,20 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits nonzero):
-  1. environment: the card's name and power limit, then the kernel build;
-  2. each hand-written kernel against its plain PyTorch version on the card,
-     at the reference tests' shapes and tolerances plus qwen1.5-0.5b's
+  1. environment: the card's name and power limit, then the kernel build
+     (registers and spills per kernel from ptxas);
+  2. each hand-written kernel against its plain PyTorch version and the
+     oracle on the card: the matmul's f32 route and every bf16 wgmma
+     instance (M = 1 and 8, bn 64 / 192 / 448 / 512, bm up to 512, bk 128),
+     the attention's f32 route and both bf16 paths (tensor cores, decode)
+     at the reference tests' shapes, a ragged Dh-32 shape and qwen1.5-0.5b's
      attention shapes;
   3. the main path: qwen1.5-0.5b at full width, prefill 1x1024 and decode
      8x1024 — the mapper plans every matmul's tiles, every unique matmul
      shape (lm_head included) and both attention shapes run once on bf16
      operands through the port's ops, launch counts read right after; then
-     each is checked against its plain version and timed;
+     each is checked against its plain version and timed, with its grid
+     (blocks against the card's SMs) and its share of the bound;
   4. one JSON line with each kernel's launches, error and times;
   5. the last line: {"ok": true, "device": {...}}.
 
@@ -34,7 +39,9 @@ from repro_torch.core.autotile import tcm_matmul_plan  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
-from repro_torch.kernels.matmul import matmul_cuda, matmul_plain  # noqa: E402
+from repro_torch.kernels.matmul import (matmul_cuda,  # noqa: E402
+                                        matmul_plain, wgmma_instance,
+                                        wgmma_instances)
 from repro_torch.kernels.ops import _pad_to, tcm_matmul  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, matmul_ref  # noqa: E402
 from repro_torch.measure import (main_path_rows, run_model,  # noqa: E402
@@ -43,6 +50,7 @@ from repro_torch.measure import (main_path_rows, run_model,  # noqa: E402
 # H100 SXM datasheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+SMS = 132
 
 MM_SHAPES = [(128, 128, 128), (256, 128, 384), (512, 256, 128),
              (384, 384, 384)]
@@ -51,9 +59,33 @@ FA_SHAPES = [  # (B, Sq, Sk, Hq, Hkv, Dh, causal)
     (2, 128, 256, 4, 2, 128, False),  # GQA + cross-length
     (1, 384, 384, 4, 1, 128, True),   # MQA
     (2, 100, 130, 4, 2, 32, True),    # ragged edges, Dh 32
+    (8, 1, 100, 4, 2, 32, False),     # decode, ragged last kv tile
     (1, 1024, 1024, 16, 16, 64, True),  # qwen1.5-0.5b prefill 1x1024
     (8, 1, 1024, 16, 16, 64, False),    # qwen1.5-0.5b decode 8x1024
 ]
+# bf16 matmul tiles beyond the 128-cube: (M, K, N, (bm, bk, bn)); together
+# they launch every instance (MT, N0, N1) of csrc/matmul.cu
+WGMMA_CASES = [
+    (1, 256, 1024, (1, 64, 512)),      # M = 1: (1, 256, 256)
+    (8, 320, 1536, (8, 64, 192)),      # M = 8, (1, 128, 64), ring wraps
+    (8, 192, 512, (8, 64, 64)),        # (1, 64, 0): second warpgroup idle
+    (8, 8, 64, (8, 8, 64)),            # K below one box (zero-filled)
+    (8, 128, 8, (8, 64, 8)),           # N below one box
+    (8, 1024, 896, (8, 64, 448)),      # seven 64-wide boxes: (1, 256, 192)
+    (8, 1024, 1024, (8, 64, 128)),     # (1, 64, 64): decode lm_head's
+    (8, 256, 640, (8, 64, 320)),       # (1, 192, 128)
+    (8, 128, 768, (8, 64, 384)),       # (1, 192, 192) side by side
+    (64, 256, 1024, (64, 64, 256)),    # (1, 128, 128)
+    (256, 320, 384, (128, 64, 192)),   # split along m: (1, 192, 192)
+    (256, 512, 512, (128, 64, 256)),   # (1, 256, 256)
+    (512, 384, 256, (256, 64, 128)),   # (2, 128, 128): the prefill tile
+    (512, 384, 256, (256, 64, 64)),    # (2, 64, 64)
+    (1024, 512, 128, (512, 64, 64)),   # (4, 64, 64): bm 512, three stages
+    (384, 640, 384, (128, 128, 128)),  # bk 128: two boxes a stage
+]
+# bf16 attention tiles: the tensor-core path at 1, 4 and 8 warps and kv
+# tiles of 64 and 128, and the decode path (q tile below 16)
+FA_BF16_TILES = [(64, 64), (128, 128), (16, 64), (1, 64), (1, 512)]
 # reference tolerances (tests/test_kernels.py)
 MM_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
 MM_TCM_TOL = 1e-4  # the TCM-tiled f32 case
@@ -115,26 +147,39 @@ def phase_environment() -> str:
     build.lib()
     print(f"built {os.path.relpath(so, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for line in build.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or "==" in line:
-            print("  " + line.strip())
+    for line in build.ptxas_summary(build.ptxas_log):
+        print("  " + line)
     return smi
+
+
+def check_matmul(dtype, M, K, N, tiles, g) -> None:
+    bm, bk, bn = tiles
+    a, b = randn((M, K), dtype, g), randn((K, N), dtype, g)
+    out = matmul_cuda(a, b, bm=bm, bk=bk, bn=bn)
+    tol = MM_TOL[dtype]
+    ok1, e1, t1 = close_to_plain(out, matmul_plain(a, b, bm=bm, bk=bk, bn=bn),
+                                 tol)
+    ok2, e2 = close(out, matmul_ref(a, b), tol)
+    inst = (f" instance {wgmma_instance(bm, bn)}"
+            if dtype == torch.bfloat16 else "")
+    check(f"matmul {dtype} {M}x{K}x{N} tiles {tiles}{inst}", ok1 and ok2,
+          f"max|err| vs plain {e1:.3g} (tol {t1}), vs oracle {e2:.3g} "
+          f"(tol {tol})")
 
 
 def phase_kernels() -> None:
     print("== phase 2: kernels against plain versions on the card")
     for dtype in (torch.float32, torch.bfloat16):
-        tol = MM_TOL[dtype]
         for i, (M, K, N) in enumerate(MM_SHAPES):
-            g = gen(i)
-            a, b = randn((M, K), dtype, g), randn((K, N), dtype, g)
-            out = matmul_cuda(a, b, bm=128, bk=128, bn=128)
-            ok1, e1, t1 = close_to_plain(out, matmul_plain(
-                a, b, bm=128, bk=128, bn=128), tol)
-            ok2, e2 = close(out, matmul_ref(a, b), tol)
-            check(f"matmul {dtype} {M}x{K}x{N} tiles 128^3", ok1 and ok2,
-                  f"max|err| vs plain {e1:.3g} (tol {t1}), "
-                  f"vs oracle {e2:.3g} (tol {tol})")
+            check_matmul(dtype, M, K, N, (128, 128, 128), gen(i))
+    launched = set()
+    for i, (M, K, N, tiles) in enumerate(WGMMA_CASES):
+        check_matmul(torch.bfloat16, M, K, N, tiles, gen(30 + i))
+        launched.add(wgmma_instance(tiles[0], tiles[2]))
+    check("every bf16 wgmma instance launched",
+          launched == set(range(wgmma_instances())),
+          f"{sorted(launched)} of {wgmma_instances()} instances")
+    for dtype in (torch.float32, torch.bfloat16):
         M, K, N = 512, 384, 640
         g = gen(10)
         a, b = randn((M, K), dtype, g), randn((K, N), dtype, g)
@@ -149,19 +194,23 @@ def phase_kernels() -> None:
               f"max|err| vs plain {e:.3g} (tol {t})")
     for dtype in (torch.float32, torch.bfloat16):
         tol = FA_TOL[dtype]
+        tile_list = FA_BF16_TILES if dtype == torch.bfloat16 else [(64, 64)]
         for i, (B, Sq, Sk, Hq, Hkv, Dh, causal) in enumerate(FA_SHAPES):
             g = gen(20 + i)
             q = randn((B, Sq, Hq, Dh), dtype, g)
             k = randn((B, Sk, Hkv, Dh), dtype, g)
             v = randn((B, Sk, Hkv, Dh), dtype, g)
-            out = flash_attention_cuda(q, k, v, causal=causal, bq=64, bk=64)
-            ok1, e1, t1 = close_to_plain(out, flash_attention_plain(
-                q, k, v, causal=causal, bq=64, bk=64), tol)
-            ok2, e2 = close(out, attention_ref(q, k, v, causal=causal), tol)
-            check(f"flash_attention {dtype} {(B, Sq, Sk, Hq, Hkv, Dh)} "
-                  f"causal={causal} tiles (64, 64)", ok1 and ok2,
-                  f"max|err| vs plain {e1:.3g} (tol {t1}), "
-                  f"vs oracle {e2:.3g} (tol {tol})")
+            want = attention_ref(q, k, v, causal=causal)
+            for bq, bkv in tile_list:
+                out = flash_attention_cuda(q, k, v, causal=causal, bq=bq,
+                                           bk=bkv)
+                ok1, e1, t1 = close_to_plain(out, flash_attention_plain(
+                    q, k, v, causal=causal, bq=bq, bk=bkv), tol)
+                ok2, e2 = close(out, want, tol)
+                check(f"flash_attention {dtype} {(B, Sq, Sk, Hq, Hkv, Dh)} "
+                      f"causal={causal} tiles {(bq, bkv)}", ok1 and ok2,
+                      f"max|err| vs plain {e1:.3g} (tol {t1}), "
+                      f"vs oracle {e2:.3g} (tol {tol})")
     torch.cuda.synchronize()
 
 
@@ -203,15 +252,18 @@ def phase_main_path() -> dict:
               f"max|err| {err:.3g} (tol {t})")
         return err
 
-    def record(name, err, row, plain, library, nbytes, flops):
-        """Adds the plain, library and bound columns to measure's row."""
+    def record(name, err, row, plain, library, nbytes, flops, blocks):
+        """Adds the plain, library, bound and grid columns to measure's
+        row."""
         t, t_d = row["measured_s"], row["default_s"]
         t_p, t_l = (time_call(f, dev) for f in (plain, library))
         bnd, by, tb, tf = bound_s(nbytes, flops)
         modeled = row["modeled_s"]
         print(f"    ms {t * 1e3:.4f} default{tuple(row['default_tiles'])} "
               f"{t_d * 1e3:.4f} plain {t_p * 1e3:.4f} library "
-              f"{t_l * 1e3:.4f} bound {bnd * 1e3:.4f} ({by}) modeled(one SM) "
+              f"{t_l * 1e3:.4f} ({t / t_l:.2f}x) bound {bnd * 1e3:.4g} ({by}, "
+              f"share {bnd / t:.3f}) grid {blocks} blocks / {SMS} SMs "
+              f"modeled(one SM) "
               f"{'none' if modeled is None else f'{modeled * 1e3:.4f}'}")
         s = tot[name]
         for key, val in (("ms", t), ("plain_ms", t_p), ("library_ms", t_l),
@@ -236,7 +288,8 @@ def phase_main_path() -> dict:
             record("matmul", err, row,
                    lambda: matmul_plain(ap, bp, bm=bm, bk=bk, bn=bn),
                    lambda: torch.matmul(a, b),
-                   2 * (M * K + K * N + M * N), 2 * M * K * N)
+                   2 * (M * K + K * N + M * N), 2 * M * K * N,
+                   (ap.shape[0] // bm) * (bp.shape[1] // bn))
 
         (B, Sq, Sk, Hq, Hkv, Dh), causal, (bq, bkv) = (attn.shape,
                                                        attn.causal, attn.tiles)
@@ -252,7 +305,8 @@ def phase_main_path() -> dict:
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv),
                2 * (2 * B * Sq * Hq * Dh + 2 * B * Sk * Hkv * Dh),
-               4 * B * Hq * Dh * attention_pairs(Sq, Sk, causal))
+               4 * B * Hq * Dh * attention_pairs(Sq, Sk, causal),
+               B * Hq * (Sq if bq < 16 else -(-Sq // bq)))
     torch.cuda.synchronize()
     return {"launches": launches, "totals": tot}
 

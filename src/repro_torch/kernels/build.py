@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -89,8 +90,14 @@ def lib() -> ctypes.CDLL:
             so = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             i64p = ctypes.POINTER(ctypes.c_longlong)
-            so.tcm_matmul_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-            so.tcm_matmul_launch.restype = i
+            so.tcm_matmul_f32_launch.argtypes = [p, p, p] + [i] * 6 + [p]
+            so.tcm_matmul_f32_launch.restype = i
+            so.tcm_matmul_bf16_launch.argtypes = [p, p, p] + [i] * 6 + [p]
+            so.tcm_matmul_bf16_launch.restype = i
+            so.tcm_matmul_bf16_instance.argtypes = [i, i]
+            so.tcm_matmul_bf16_instance.restype = i
+            so.tcm_matmul_bf16_instances.argtypes = []
+            so.tcm_matmul_bf16_instances.restype = i
             so.tcm_flash_attention_launch.argtypes = [
                 p, p, p, p, i, i, i, i, i, i, i64p, i64p, i64p, i, i, i, f,
                 i, p]
@@ -99,6 +106,39 @@ def lib() -> ctypes.CDLL:
             so.tcm_error_string.restype = ctypes.c_char_p
             _lib = so
         return _lib
+
+
+def _kernel_name(mangled: str) -> str:
+    """``wgmma_matmul<2,128>`` from an Itanium-mangled kernel name (nested
+    names, int template arguments)."""
+    pos, ids = (3 if mangled.startswith("_ZN") else 2), []
+    while m := re.match(r"\d+", mangled[pos:]):
+        pos += len(m.group())
+        ids.append(mangled[pos:pos + int(m.group())])
+        pos += int(m.group())
+    if not ids:
+        return mangled
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+    vals = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
+    return ids[-1] + (f"<{','.join(vals)}>" if vals else "")
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per compiled kernel from a ``-Xptxas -v`` log: its
+    registers and spill bytes, and any performance loss ptxas reports."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = _kernel_name(m.group(1))
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+        elif m := re.search(r"Performance Loss: (.*) in the function "
+                            r"'(\w+)'", line):
+            out.append(f"{_kernel_name(m.group(2))}: {m.group(1)}")
+    return out
 
 
 def check(code: int, what: str) -> None:

@@ -1,68 +1,43 @@
-// Shared-memory tile helpers for the hand-written Hopper kernels.
+// Shared-memory tile helpers for the f32 SIMT kernels.
 //
-// Both kernels hold their operand tiles in shared memory with every extent
-// rounded up to a multiple of 4 (zero-filled past the real edge), so the
-// 4x4 register micro-tile below needs no predicates and every operand read
-// is one 16-byte (f32) or 8-byte (bf16) vector load.  Products are plain
-// IEEE f32 FMAs (no TF32, no tensor cores): f32 inputs keep full precision,
-// bf16 inputs are widened exactly to f32.
+// Both f32 kernels hold their operand tiles in shared memory with every
+// extent rounded up to a multiple of 4 (zero-filled past the real edge), so
+// the 4x4 register micro-tile below needs no predicates and every operand
+// read is one 16-byte vector load.  Products are plain IEEE f32 FMAs (no
+// TF32, no tensor cores), so f32 inputs keep full precision.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tcm {
 
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// Four consecutive elements as f32; p must be aligned to 4 elements.
+// Four consecutive elements; p must be aligned to 4 elements.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // Copy a rows x cols tile (row stride ld, in elements) from global memory
 // into shared memory laid out [rows4][cols4], zero past the real edge.
 // Consecutive threads read consecutive columns, so the reads coalesce.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld,
-                                          int rows, int cols, int rows4,
-                                          int cols4) {
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long ld, int rows, int cols,
+                                          int rows4, int cols4) {
   for (int i = threadIdx.x; i < rows4 * cols4; i += blockDim.x) {
     const int r = i / cols4, c = i - r * cols4;
-    dst[i] = (r < rows && c < cols) ? src[r * ld + c] : from_f32<T>(0.f);
+    dst[i] = (r < rows && c < cols) ? src[r * ld + c] : 0.f;
   }
 }
 
 // C[m][n] = (accumulate ? C[m][n] * scale[m] : 0) + sum_k A(m, k) * B[k][n]
-// over an m4 x n4 block of C (f32, row stride ldc), k4 terms, with
+// over an m4 x n4 block of C (row stride ldc), k4 terms, with
 // A(m, k) = A[k * lda + m] when A_T else A[m * lda + k] and B[k * ldb + n].
 // m4, n4, k4 and the leading dimensions are multiples of 4.  Each thread
 // owns 4x4 micro-tiles of C in registers and sums k in order, one FMA per
 // term.  ``scale`` may be null (no rescale).
-template <bool A_T, typename TA, typename TB>
-__device__ __forceinline__ void mm_acc(const TA* A, int lda, const TB* B,
+template <bool A_T>
+__device__ __forceinline__ void mm_acc(const float* A, int lda, const float* B,
                                        int ldb, float* C, int ldc, int m4,
                                        int n4, int k4, const float* scale,
                                        bool accumulate) {

@@ -3,11 +3,13 @@
 Replaces the Pallas TPU kernel ``_fa_kernel`` (``flash_attention_pallas``
 in ``repro/kernels/flash_attention.py``) with the same conventions (see
 ``csrc/flash_attention.cu``).  ``flash_attention_cuda`` launches the
-kernel; ``flash_attention_plain`` repeats its online softmax in PyTorch, one
-kv tile of ``bk`` keys at a time, and serves the CPU and the on-card
-comparison.  Both take the ``(B, S, H, Dh)`` layout as it is, and both take
-ragged ``Sq``/``Sk`` (``Sq = 1`` decode included), which the TPU kernel's
-divisibility assert did not.
+kernel: bf16 on tensor cores from a 16-row q tile up, bf16 on the decode
+path below that, f32 on the SIMT route.  ``flash_attention_plain`` repeats
+its online softmax in PyTorch, one kv tile of ``bk`` keys at a time, and
+serves the CPU and the on-card comparison.  Both take the
+``(B, S, H, Dh)`` layout as it is, and both take ragged ``Sq``/``Sk``
+(``Sq = 1`` decode included), which the TPU kernel's divisibility assert
+did not.
 """
 from __future__ import annotations
 
@@ -16,20 +18,43 @@ import math
 
 import torch
 
-from ..core.autotile import SMEM_BYTES, _round4
+from ..core.autotile import FA_MMA_BK, FA_MMA_BQ_MAX, SMEM_BYTES, _round4
 from . import build
 from .matmul import DTYPE_CODES
 from .ref import _no_tf32
 
 HEAD_DIMS = (32, 64, 128)
+DECODE_THREADS = 256  # threads of one decode-path block
 
 
 def smem_footprint(bq: int, bk: int, dh: int, in_bytes: int) -> int:
-    """Shared memory one block of the kernel asks for: the scaled f32 q
-    tile, f32 scores and accumulator, three f32 row vectors (m, l, corr)
-    and the k and v tiles in the input dtype, extents rounded up to 4."""
+    """Shared memory one block of the kernel asks for.
+
+    bf16 tensor-core path (bq >= 16): the q tile and a double-buffered k
+    and v tile, rows padded by 8 elements.  bf16 decode path (bq < 16):
+    the kv tile's f32 scores, one f32 per warp for the block reductions and
+    the f32 P V partial sums of every key group.  f32: the scaled q tile,
+    scores and accumulator, three row vectors (m, l, corr) and the k and v
+    tiles, all f32, extents rounded up to 4.
+    """
+    if in_bytes == 2 and bq >= 16:
+        return 2 * (dh + 8) * (bq + 4 * bk)
+    if in_bytes == 2:
+        return 4 * (bk + DECODE_THREADS // 32 + DECODE_THREADS * 8)
     q4, k4 = _round4(bq), _round4(bk)
-    return 4 * (dh * q4 + k4 * q4 + q4 * dh + 3 * q4) + in_bytes * 2 * k4 * dh
+    return 4 * (dh * q4 + k4 * q4 + q4 * dh + 3 * q4 + 2 * k4 * dh)
+
+
+def kernel_takes(bq: int, bk: int, dh: int, in_bytes: int) -> bool:
+    """Whether the attention kernel of this dtype launches at (bq, bk):
+    the tensor-core path wants bq a multiple of 16 up to
+    ``FA_MMA_BQ_MAX`` and bk in ``FA_MMA_BK``; every path wants its shared
+    memory to fit.  ``core.autotile.attention_tile`` maps a plan here."""
+    if (in_bytes == 2 and bq >= 16
+            and (bq % 16 or bq > FA_MMA_BQ_MAX or bk not in FA_MMA_BK)):
+        return False
+    return min(bq, bk) >= 1 and smem_footprint(bq, bk, dh,
+                                               in_bytes) <= SMEM_BYTES
 
 
 def _check(q, k, v, bq: int, bk: int):
@@ -95,11 +120,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, bq: int = 64,
         raise ValueError(f"head dim {Dh} not in {HEAD_DIMS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q/k/v need unit stride over the head dim")
-    need = smem_footprint(bq, bk, Dh, q.element_size())
-    if need > SMEM_BYTES:
-        raise ValueError(f"tiles {(bq, bk)} at Dh={Dh} need {need} B of "
-                         f"shared memory, over the {SMEM_BYTES} B a block "
-                         f"may use")
+    if not kernel_takes(bq, bk, Dh, q.element_size()):
+        raise ValueError(f"the {q.dtype} kernel does not take tiles "
+                         f"{(bq, bk)} at Dh={Dh}")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError("bf16 q/k/v rows must be 16-byte aligned")
     o = torch.empty((B, Sq, Hq, Dh), dtype=q.dtype, device=q.device)
     strides = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (q, k, v)]
     with torch.cuda.device(q.device):

@@ -1,16 +1,17 @@
 """Tiled matmul: the hand-written CUDA kernel and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``_matmul_kernel`` (``matmul_pallas`` in
-``repro/kernels/matmul.py``).  ``matmul_cuda`` launches
-``csrc/matmul.cu``; ``matmul_plain`` repeats its arithmetic (an f32
-accumulator, one f32 product per ``bk`` step, added in order, cast back to
-the input dtype) and serves the CPU and the on-card comparison.
+``repro/kernels/matmul.py``).  ``matmul_cuda`` launches ``csrc/matmul.cu``:
+bf16 through its TMA + ``wgmma`` route, f32 through its SIMT route.
+``matmul_plain`` repeats the arithmetic (an f32 accumulator, one f32
+product per ``bk`` step, added in order, cast back to the input dtype) and
+serves the CPU and the on-card comparison.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.autotile import SMEM_BYTES, smem_footprint
+from ..core.autotile import SMEM_BYTES, kernel_takes, smem_footprint
 from . import build
 from .ref import _no_tf32
 
@@ -30,6 +31,18 @@ def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int, bn: int):
     return M, K, N
 
 
+def wgmma_instance(bm: int, bn: int) -> int:
+    """The bf16 kernel instance that runs a (bm, bn) tile, as an index below
+    :func:`wgmma_instances`; -1 for a tile no instance runs.  The launcher
+    in ``csrc/matmul.cu`` makes the choice; this asks the built library."""
+    return build.lib().tcm_matmul_bf16_instance(bm, bn)
+
+
+def wgmma_instances() -> int:
+    """How many bf16 kernel instances the build has."""
+    return build.lib().tcm_matmul_bf16_instances()
+
+
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int, bk: int,
                  bn: int) -> torch.Tensor:
     """a: (M, K), b: (K, N) -> (M, N); tile dims must divide the shapes."""
@@ -43,22 +56,35 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int, bk: int,
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int, bk: int,
                 bn: int) -> torch.Tensor:
-    """Launch ``csrc/matmul.cu`` on CUDA tensors; raises on anything else."""
+    """Launch ``csrc/matmul.cu`` on CUDA tensors; raises on anything else,
+    including a tile the dtype's kernel does not take
+    (``core.autotile.kernel_takes``)."""
     M, K, N = _check(a, b, bm, bk, bn)
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError("matmul_cuda takes two tensors on one CUDA device")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul_cuda takes contiguous row-major tensors")
-    need = smem_footprint(bm, bk, bn, a.element_size())
-    if need > SMEM_BYTES:
-        raise ValueError(f"tile {(bm, bk, bn)} needs {need} B of shared "
-                         f"memory, over the {SMEM_BYTES} B a block may use")
+    if not kernel_takes(bm, bk, bn, K, a.element_size()):
+        raise ValueError(
+            f"the {a.dtype} kernel does not take tile {(bm, bk, bn)} "
+            f"({smem_footprint(bm, bk, bn, a.element_size())} B of shared "
+            f"memory of {SMEM_BYTES}; see core.autotile.kernel_takes)")
+    bf16 = a.dtype == torch.bfloat16
+    if bf16 and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError("TMA needs 16-byte-aligned operands")
     z = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    lib = build.lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check(build.lib().tcm_matmul_launch(
-            a.data_ptr(), b.data_ptr(), z.data_ptr(), M, K, N, bm, bk, bn,
-            DTYPE_CODES[a.dtype], stream), "matmul")
+        if bf16:
+            code = lib.tcm_matmul_bf16_launch(
+                a.data_ptr(), b.data_ptr(), z.data_ptr(), M, K, N, bm, bk,
+                bn, stream)
+        else:
+            code = lib.tcm_matmul_f32_launch(
+                a.data_ptr(), b.data_ptr(), z.data_ptr(), M, K, N, bm, bk,
+                bn, stream)
+    build.check(code, "matmul")
     matmul_cuda.launches += 1
     return z
 

@@ -27,7 +27,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from .configs import get_config
-from .core.autotile import tcm_matmul_plan
+from .core.autotile import attention_tile, tcm_matmul_plan, wgmma_tile
 from .kernels.ops import flash_attention_op, tcm_matmul
 from .models.config import ModelConfig
 from .netmap.planner import model_shapes, model_tiles
@@ -108,9 +108,12 @@ def time_matmul(a: torch.Tensor, b: torch.Tensor,
                 tiles: Tuple[int, int, int], modeled_s: Optional[float], *,
                 t_map: float, repeats: int = 3) -> dict:
     """Report row: ``tcm_matmul`` on these operands at ``tiles`` against
-    the default 128-cube tiling, timed on the operands' device."""
+    the default 128-cube tiling (clamped to the bf16 kernel's tiles by
+    ``wgmma_tile``), timed on the operands' device."""
     (M, K), N = a.shape, b.shape[1]
     dflt = (min(M, 128), min(K, 128), min(N, 128))
+    if a.dtype == torch.bfloat16:
+        dflt = wgmma_tile(*dflt)
     t_tcm = time_call(lambda: tcm_matmul(a, b, tiles=tiles), a.device,
                       repeats)
     t_dflt = time_call(lambda: tcm_matmul(a, b, tiles=dflt), a.device,
@@ -138,11 +141,14 @@ def attention_plan(Sq: int, Sk: int, Dh: int,
                    dtype: torch.dtype = torch.bfloat16
                    ) -> Tuple[Tuple[int, int], Optional[float]]:
     """(bq, bk) from the score matmul ``S = Q @ K^T`` (per head: M=Sq, K=Dh,
-    N=Sk) — the mapper's bm becomes the query tile, bn the kv tile — and
-    that mapping's modeled latency."""
+    N=Sk) — the mapper's bm becomes the query tile, bn the kv tile, mapped
+    onto the attention kernel's tiles by ``core.autotile.attention_tile``
+    (bf16 prefill 256 x 128 -> 128 x 128; decode 1 x 512 stays) — and that
+    mapping's modeled latency."""
     plan = tcm_matmul_plan(Sq, Dh, Sk, word_bytes=dtype.itemsize)
     bm, _, bn = plan.tiles
-    return (min(bm, Sq), min(bn, Sk)), plan.modeled_s
+    return (attention_tile(min(bm, Sq), min(bn, Sk), dtype.itemsize),
+            plan.modeled_s)
 
 
 def time_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,11 +156,12 @@ def time_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, t_map: float,
                          repeats: int = 3) -> dict:
     """Report row: ``flash_attention_op`` on these inputs at ``tiles``
-    (bq, bk) against default 128 tiles, timed on the inputs' device."""
+    (bq, bk) against default 128 tiles (through ``attention_tile``), timed
+    on the inputs' device."""
     B, Sq, Hq, Dh = q.shape
     Sk = k.shape[1]
     bq, bkv = tiles
-    dflt = (min(128, Sq), min(128, Sk))
+    dflt = attention_tile(min(128, Sq), min(128, Sk), q.element_size())
     t_tcm = time_call(lambda: flash_attention_op(
         q, k, v, causal=causal, bq=bq, bk=bkv), q.device, repeats)
     t_dflt = time_call(lambda: flash_attention_op(

@@ -149,3 +149,28 @@ def test_cpu_tensors_never_reach_the_kernels():
         flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError):
         ops.tcm_matmul(t, t.to("meta"))
+
+
+def test_ptxas_summary_names_each_kernel():
+    from repro_torch.kernels.build import ptxas_summary
+
+    fn = ("_ZN41_GLOBAL__N__42bcca10_9_matmul_cu_f49e585212wgmma_matmulILi2E"
+          "Li128EEEv14CUtensorMap_stS1_P13__nv_bfloat16iiiiiii")
+    f32 = "_ZN41_GLOBAL__N__42bcca10_9_matmul_cu_f49e585215simt_matmul_f32EPKf"
+    log = "\n".join([
+        f"ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async "
+        f"instructions are serialized due to X in the function '{fn}'",
+        f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fn}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{f32}' for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 63 registers, used 1 barriers"])
+    assert ptxas_summary(log) == [
+        "wgmma_matmul<2,128>: wgmma.mma_async instructions are serialized "
+        "due to X",
+        "wgmma_matmul<2,128>: 168 registers, 0 bytes stack frame, 0 bytes "
+        "spill stores, 0 bytes spill loads",
+        "simt_matmul_f32: 63 registers, 0 bytes stack frame, 8 bytes spill "
+        "stores, 8 bytes spill loads"]

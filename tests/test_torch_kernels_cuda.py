@@ -11,7 +11,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.matmul import matmul_cuda, matmul_plain
+from repro_torch.kernels.matmul import (matmul_cuda, matmul_plain,
+                                        wgmma_instance, wgmma_instances)
+from repro_torch.kernels.ref import attention_ref, matmul_ref
 
 MM_SHAPES = [(128, 128, 128), (256, 128, 384), (512, 256, 128),
              (384, 384, 384)]
@@ -20,7 +22,33 @@ FA_SHAPES = [  # (B, Sq, Sk, Hq, Hkv, Dh, causal)
     (2, 128, 256, 4, 2, 128, False),  # GQA + cross-length
     (1, 384, 384, 4, 1, 128, True),   # MQA
     (8, 1, 100, 4, 2, 32, False),     # decode, ragged kv
+    (2, 100, 130, 4, 2, 32, True),    # ragged edges, Dh 32
+    (1, 1024, 1024, 16, 16, 64, True),  # qwen1.5-0.5b prefill 1x1024
+    (8, 1, 1024, 16, 16, 64, False),    # qwen1.5-0.5b decode 8x1024
 ]
+# bf16 matmul tiles: (M, K, N, (bm, bk, bn)), every wgmma instance
+WGMMA_CASES = [
+    (1, 256, 1024, (1, 64, 512)),
+    (8, 320, 1536, (8, 64, 192)),
+    (8, 192, 512, (8, 64, 64)),
+    (8, 8, 64, (8, 8, 64)),
+    (8, 128, 8, (8, 64, 8)),
+    (8, 1024, 896, (8, 64, 448)),
+    (8, 1024, 1024, (8, 64, 128)),
+    (8, 256, 640, (8, 64, 320)),
+    (8, 128, 768, (8, 64, 384)),
+    (64, 256, 1024, (64, 64, 256)),
+    (256, 320, 384, (128, 64, 192)),
+    (256, 512, 512, (128, 64, 256)),
+    (512, 384, 256, (256, 64, 128)),
+    (512, 384, 256, (256, 64, 64)),
+    (1024, 512, 128, (512, 64, 64)),
+    (384, 640, 384, (128, 128, 128)),
+]
+# bf16 attention tiles: tensor-core path (1, 4, 8 warps) and decode path
+FA_BF16_TILES = [(64, 64), (128, 128), (16, 64), (1, 64), (1, 512)]
+# bf16 against the plain version: one rounding step (see chip_smoke.py)
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 4e-3
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MM_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
 FA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -72,3 +100,45 @@ def test_flash_attention_kernel_matches_plain_on_card(shape, dtype,
         _np(flash_attention_cuda(q, k, v, causal=causal, bq=64, bk=64)),
         _np(flash_attention_plain(q, k, v, causal=causal, bq=64, bk=64)),
         rtol=tol, atol=tol)
+
+
+def _held_bf16(out, plain, oracle, tol):
+    """bf16 kernel output within one rounding step of its plain version,
+    and within the reference tolerance of the oracle."""
+    np.testing.assert_allclose(_np(out), _np(plain), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    np.testing.assert_allclose(_np(out), _np(oracle), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_wgmma_cases_cover_every_instance(cuda_device):
+    # the launcher in csrc/matmul.cu picks the instance: ask the build
+    assert ({wgmma_instance(t[0], t[2]) for *_, t in WGMMA_CASES}
+            == set(range(wgmma_instances())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_wgmma_matmul_instances_on_card(case, cuda_device):
+    M, K, N, (bm, bk, bn) = case
+    rng = np.random.default_rng(1)
+    a = _t(rng, (M, K), "bfloat16", cuda_device)
+    b = _t(rng, (K, N), "bfloat16", cuda_device)
+    _held_bf16(matmul_cuda(a, b, bm=bm, bk=bk, bn=bn),
+               matmul_plain(a, b, bm=bm, bk=bk, bn=bn), matmul_ref(a, b),
+               MM_TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", FA_BF16_TILES, ids=str)
+@pytest.mark.parametrize("shape", FA_SHAPES, ids=str)
+def test_bf16_attention_paths_on_card(shape, tiles, cuda_device):
+    B, Sq, Sk, Hq, Hkv, Dh, causal = shape
+    bq, bk = tiles
+    rng = np.random.default_rng(3)
+    q = _t(rng, (B, Sq, Hq, Dh), "bfloat16", cuda_device)
+    k = _t(rng, (B, Sk, Hkv, Dh), "bfloat16", cuda_device)
+    v = _t(rng, (B, Sk, Hkv, Dh), "bfloat16", cuda_device)
+    _held_bf16(flash_attention_cuda(q, k, v, causal=causal, bq=bq, bk=bk),
+               flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk),
+               attention_ref(q, k, v, causal=causal), FA_TOL["bfloat16"])

@@ -24,11 +24,15 @@ ARCHS = {
     "tpu_v4i": lambda names: tpu_v4i_like(names),
     "h100_sm": lambda names: R.arch_from_dict(
         P.arch_to_dict(port_autotile._h100_sm(14))),
+    # the bf16 plan's HBM -> RF(Z) -> SMEM(A, B) arch, built by the port
+    "h100_wgmma": lambda names: R.arch_from_dict(
+        P.arch_to_dict(port_autotile._h100_wgmma(7))),
 }
 # conv1d on the TPU-v4i preset takes seconds per side; the other pairs
-# cover the conv einsum
+# cover the conv einsum.  The wgmma arch admits only tensors A, B and Z, so
+# conv1d (A, W, Z) has no mapping there.
 CASES = [(e, a) for e in EINSUMS for a in ARCHS
-         if (e, a) != ("conv1d", "tpu_v4i")]
+         if (e, a) not in (("conv1d", "tpu_v4i"), ("conv1d", "h100_wgmma"))]
 
 
 def _nodes(mapping):
@@ -66,9 +70,24 @@ def test_wire_dicts_round_trip():
         R.arch_to_dict(arch))) == R.arch_to_dict(arch)
 
 
-@pytest.mark.parametrize("arch_name", ["v5e_core", "h100_sm"])
+@pytest.mark.parametrize("arch_name", ["v5e_core", "h100_sm", "h100_wgmma"])
 def test_tile_products_copies_agree(arch_name):
     ein, port_ein, ref, _, port, _ = _both("matmul", arch_name,
                                            objective="latency")
     assert (port_autotile._tile_products(port, port_ein)
             == ref_autotile._tile_products(ref, ein))
+
+
+def test_wgmma_plan_arch_bit_identical_on_qwen_shape():
+    """The bf16 plan's own arch and block einsum (qwen prefill 1024^3 in
+    64-blocks) through wire dicts into ``repro.core.tcm_map``."""
+    arch = port_autotile.plan_arch(word_bytes=2)
+    ein = P.matmul("mm", 16, 16, 16)
+    port, port_stats = P.tcm_map(ein, arch, objective="latency")
+    ref, ref_stats = R.tcm_map(R.einsum_from_dict(P.einsum_to_dict(ein)),
+                               R.arch_from_dict(P.arch_to_dict(arch)),
+                               objective="latency")
+    assert (port.energy, port.latency, port.edp) == (ref.energy, ref.latency,
+                                                     ref.edp)
+    assert _nodes(port.mapping) == _nodes(ref.mapping)
+    assert port_stats.n_expanded == ref_stats.n_expanded
