@@ -16,8 +16,26 @@ Phases (each prints its own lines; any failure exits nonzero):
      operands through the port's ops, launch counts read right after; then
      each is checked against its plain version and timed, with its grid
      (blocks against the card's SMs) and its share of the bound;
-  4. one JSON line with each kernel's launches, error and times;
-  5. the last line: {"ok": true, "device": {...}}.
+  4. the service route: a MappingService on a fresh cache serves the same
+     model's tiles — every unique main-path matmul shape exactly, first
+     from a cold search and then from the hot index, each equal to the
+     tile phase 3 ran — plus decode attention's score matmul at kv 1000
+     from a bucket; the kernels run at those tiles (launch counts read
+     right after) and are held against their plain versions, prefill
+     attention runs through ``serve_map.measure.measure_flash_attention``
+     (its timed output is held against the plain version), the load
+     generator's ``bench --fast`` runs in process as a pass/fail gate, and
+     the route's own traffic runs at full width: 2000 tile requests of
+     qwen1.5-0.5b's forward passes at drawn batches and ragged lengths
+     (``serve_map.measure.run_tile_load``) from 8 client threads, then 1,
+     then 8, after a stampede of 8 on one cold shape; the kernels then run
+     at a sample of the tiles it served from buckets; one JSON line
+     {"service": {...}} with map sources and times, tiles, kernel times and
+     errors, and per load run hit and tile p50/p99, sources, searches and
+     coalescing;
+  5. one JSON line with each kernel's launches on the main path (phase 3),
+     error and times;
+  6. the last line: {"ok": true, "device": {...}}.
 
 Needs torch with CUDA, nvcc and one card; it fails without them.
 """
@@ -27,6 +45,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -35,7 +54,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.autotile import tcm_matmul_plan  # noqa: E402
+from repro_torch.core.autotile import (kernel_takes,  # noqa: E402
+                                       tcm_matmul_plan)
+from repro_torch.core.search import clear_search_caches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
@@ -44,13 +65,36 @@ from repro_torch.kernels.matmul import (matmul_cuda,  # noqa: E402
                                         wgmma_instances)
 from repro_torch.kernels.ops import _pad_to, tcm_matmul  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, matmul_ref  # noqa: E402
-from repro_torch.measure import (main_path_rows, run_model,  # noqa: E402
-                                 time_call)
+from repro_torch.measure import (_randn, main_path_rows,  # noqa: E402
+                                 run_model, time_call)
+from repro_torch.netmap.planner import model_shapes  # noqa: E402
+from repro_torch.serve_map import MappingService  # noqa: E402
+from repro_torch.serve_map.__main__ import main as serve_map_main  # noqa
+from repro_torch.serve_map.measure import (  # noqa: E402
+    measure_flash_attention, run_tile_load, service_matmul_tiles,
+    tile_request_shapes)
 
 # H100 SXM datasheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 SMS = 132
+# qwen1.5-0.5b's main path: (mode, batch, seq)
+RUNS = [("prefill", 1, 1024), ("decode", 8, 1024)]
+# decode attention's score matmul at a kv length off the 64-wide grid: 15
+# kv blocks, served from the bucket of 16
+BUCKETED_KV = 1000
+# the route's own traffic: tile requests of qwen1.5-0.5b's forward passes
+# at drawn batches and ragged lengths, from 8 client threads, then 1, then 8;
+# the stampede asks for decode scores past the drawn kv lengths (cold)
+LOAD_REQUESTS = 2000
+LOAD_CLIENTS = (8, 1, 8)
+LOAD_KERNELS = 8  # bucket-hit shapes of the load run on the card
+# the load generator's gates (hit p99 ms, deadline-met, coalesce ratio)
+GATES = (50.0, 0.95, 0.5)
+BENCH_ARGS = ["bench", "--fast", "--config", "qwen1_5_0_5b", "--requests",
+              "60", "--clients", "8", "--gate-hit-p99-ms", "50",
+              "--gate-deadline-ratio", "0.95", "--gate-coalesce-ratio",
+              "0.5"]
 
 MM_SHAPES = [(128, 128, 128), (256, 128, 384), (512, 256, 128),
              (384, 384, 384)]
@@ -231,10 +275,9 @@ def phase_main_path() -> dict:
     cfg = get_config("qwen1_5_0_5b")
     matmul_cuda.launches = 0
     flash_attention_cuda.launches = 0
-    runs = [("prefill", 1, 1024), ("decode", 8, 1024)]
     driven = [(mode, *run_model(cfg, mode, batch, seq, dtype=torch.bfloat16,
                                 seed=s))
-              for s, (mode, batch, seq) in enumerate(runs)]
+              for s, (mode, batch, seq) in enumerate(RUNS)]
     torch.cuda.synchronize()
     launches = {"matmul": matmul_cuda.launches,
                 "flash_attention": flash_attention_cuda.launches}
@@ -311,6 +354,173 @@ def phase_main_path() -> dict:
     return {"launches": launches, "totals": tot}
 
 
+def phase_service() -> None:
+    print("== phase 4: service route, qwen1.5-0.5b at full width, bf16")
+    cfg = get_config("qwen1_5_0_5b")
+    shapes = list(dict.fromkeys(
+        shp for mode, batch, seq in RUNS
+        for shp in model_shapes(cfg, mode, batch, seq).values()))
+    bucketed = (1, cfg.d_head, BUCKETED_KV)
+    clear_search_caches()  # phase 3's plans warmed them: search cold
+    dev = torch.device("cuda")
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="tcm-serve-") as root, \
+            MappingService(cache_root=root) as svc:
+        tiles = {}
+        for shp in shapes:
+            cold, first = service_matmul_tiles(svc, *shp,
+                                               allow_bucketed=False)
+            hot, second = service_matmul_tiles(svc, *shp,
+                                               allow_bucketed=False)
+            want = tcm_matmul_plan(*shp).tiles
+            check(f"serve {'x'.join(map(str, shp))}",
+                  (first.source, second.source) == ("search", "exact-hit")
+                  and cold.tiles == hot.tiles == want,
+                  f"{first.source} {first.latency_s * 1e3:.3f} ms, then "
+                  f"{second.source} {second.latency_s * 1e3:.4f} ms; tile "
+                  f"{cold.tiles} (phase 3: {want})")
+            tiles[shp] = cold.tiles
+            rows.append({"shape": list(shp), "tile": list(cold.tiles),
+                         "map": [first.source, second.source],
+                         "map_ms": [first.latency_s * 1e3,
+                                    second.latency_s * 1e3]})
+        plan, resp = service_matmul_tiles(svc, *bucketed)
+        check(f"serve {'x'.join(map(str, bucketed))} (decode scores, kv "
+              f"{BUCKETED_KV})", resp.bucketed and kernel_takes(
+                  *plan.tiles, bucketed[1], 2),
+              f"{resp.source} of {resp.served_einsum.rank_shapes} in "
+              f"{resp.latency_s * 1e3:.4f} ms; tile {plan.tiles}")
+        tiles[bucketed] = plan.tiles
+        rows.append({"shape": list(bucketed), "tile": list(plan.tiles),
+                     "map": [resp.source], "map_ms": [resp.latency_s * 1e3]})
+        svc.drain_warm()
+
+        matmul_cuda.launches = 0
+        flash_attention_cuda.launches = 0
+        g = gen(40)
+        driven = []
+        for shp, tile in tiles.items():
+            M, K, N = shp
+            a, b = randn((M, K), torch.bfloat16, g), randn((K, N),
+                                                          torch.bfloat16, g)
+            driven.append((a, b, tile, tcm_matmul(a, b, tiles=tile)))
+        B, Sq, H, Dh = 1, 1024, cfg.n_heads, cfg.d_head
+        fa, fa_out = measure_flash_attention(
+            svc, B, H, Sq, Sq, Dh, causal=True, dtype=torch.bfloat16,
+            seed=41, return_out=True)
+        torch.cuda.synchronize()
+        launches = {"matmul": matmul_cuda.launches,
+                    "flash_attention": flash_attention_cuda.launches}
+        print(f"  launches on the service route: {launches}")
+        check("every kernel launched on the service route",
+              min(launches.values()) > 0, f"{launches}")
+
+    for row, (a, b, (bm, bk, bn), out) in zip(rows, driven):
+        (M, K), N = a.shape, b.shape[1]
+        ap = _pad_to(_pad_to(a, bm, 0), bk, 1)
+        bp = _pad_to(_pad_to(b, bk, 0), bn, 1)
+        ok, err, tol = close_to_plain(
+            out, matmul_plain(ap, bp, bm=bm, bk=bk, bn=bn)[:M, :N], None)
+        row["kernel_ms"] = time_call(
+            lambda: tcm_matmul(a, b, tiles=(bm, bk, bn)), dev) * 1e3
+        row["max_abs_err"] = err
+        check(f"kernel at served tile {M}x{K}x{N} {(bm, bk, bn)}",
+              tuple(out.shape) == (M, N)
+              and bool(torch.isfinite(out).all()) and ok,
+              f"max|err| {err:.3g} (tol {tol}), {row['kernel_ms']:.4f} ms")
+    g = torch.Generator(device=dev).manual_seed(41)
+    q, k, v = (_randn((B, Sq, H, Dh), torch.bfloat16, dev, g)
+               for _ in range(3))  # as measure_flash_attention made them
+    bq, bkv = fa["tiles"]
+    ok, err, tol = close_to_plain(fa_out, flash_attention_plain(
+        q, k, v, causal=True, bq=bq, bk=bkv), None)
+    check(f"flash_attention at served tiles {(B, Sq, Sq, H, H, Dh)} "
+          f"{(bq, bkv)}", fa["map_source"] == "exact-hit" and ok,
+          f"{fa['map_source']} {fa['map_latency_ms']:.4f} ms, kernel "
+          f"{fa['measured_s'] * 1e3:.4f} ms (default tiles "
+          f"{fa['default_s'] * 1e3:.4f} ms), max|err| {err:.3g} (tol {tol})")
+    rows.append({"shape": fa["shape"], "tile": fa["tiles"],
+                 "map": [fa["map_source"]], "map_ms": [fa["map_latency_ms"]],
+                 "kernel_ms": fa["measured_s"] * 1e3, "max_abs_err": err})
+
+    with tempfile.TemporaryDirectory(prefix="tcm-bench-") as tmp:
+        path = os.path.join(tmp, "bench.json")
+        rc = serve_map_main(BENCH_ARGS + ["--json", path])
+        with open(path) as f:
+            bench = json.load(f)
+    check("serve_map bench --fast, 60 requests, 8 clients, gates", rc == 0,
+          f"exit {rc}, gate failures {bench['gate_failures']}")
+
+    load, load_kernels = phase_service_load(cfg, dev)
+    print(json.dumps({"service": {
+        "launches": launches, "shapes": rows,
+        "bench_fast_gates": {"exit": rc,
+                             "failures": bench["gate_failures"]},
+        "load": load, "load_kernels": load_kernels}}))
+
+
+def phase_service_load(cfg, dev) -> tuple:
+    """The route's own traffic at full width through ``run_tile_load``: a
+    fresh service, warmed once per bucket, then LOAD_CLIENTS runs of the
+    same requests; then the kernels at a sample of the tiles it served
+    from buckets, each held against its plain version."""
+    shapes = tile_request_shapes(cfg, requests=LOAD_REQUESTS, seed=0)
+    herd = (1, cfg.d_head, 2 * 1024 + 3)  # kv past the drawn range: cold
+    load, served = [], {}
+    with tempfile.TemporaryDirectory(prefix="tcm-load-") as root, \
+            MappingService(cache_root=root) as svc:
+        for i, clients in enumerate(LOAD_CLIENTS):
+            rep = run_tile_load(svc, shapes, clients=clients,
+                                warmup=i == 0,
+                                stampede=herd if i == 0 else None)
+            served.update(rep.pop("served"))
+            p99, met, coal = GATES
+            rep["gates_met"] = (rep["hit_p99_ms"] <= p99
+                                and rep["deadline_met_ratio"] >= met
+                                and rep.get("coalesce_ratio", 1.0) >= coal)
+            load.append(rep)
+            check(f"tile load, {rep['requests']} requests, {clients} "
+                  f"client(s)", rep["requests"] == len(shapes)
+                  and rep["refused"] == 0 and rep["searches"] == 0
+                  and (i > 0 or (rep["stampede_searches"],
+                                 rep["stampede_coalesced"])
+                       == (1, clients - 1)),
+                  f"{rep['unique_shapes']} shapes in {rep['unique_buckets']} "
+                  f"buckets ({rep['warmup_searches']} warm-up searches, "
+                  f"{rep['warmup_s'] * 1e3:.1f} ms), {rep['sources']}; hit "
+                  f"p50 {rep['hit_p50_ms']:.4f} p99 {rep['hit_p99_ms']:.4f} "
+                  f"ms, tile p50 {rep['tile_p50_ms']:.4f} p99 "
+                  f"{rep['tile_p99_ms']:.4f} ms, deadline-met "
+                  f"{rep['deadline_met_ratio']:.4f}, coalesce "
+                  f"{rep.get('coalesce_ratio', '-')}, refused "
+                  f"{rep['refused']}; SLO gates "
+                  f"{'met' if rep['gates_met'] else 'MISSED'}")
+
+    bucketed = sorted(shp for shp, (_, src) in served.items()
+                      if src == "bucket-hit")
+    step = max(1, len(bucketed) // LOAD_KERNELS)
+    g = gen(42)
+    kernels = []
+    for M, K, N in bucketed[::step][:LOAD_KERNELS]:
+        bm, bk, bn = served[(M, K, N)][0]
+        a, b = randn((M, K), torch.bfloat16, g), randn((K, N),
+                                                      torch.bfloat16, g)
+        out = tcm_matmul(a, b, tiles=(bm, bk, bn))
+        ap = _pad_to(_pad_to(a, bm, 0), bk, 1)
+        bp = _pad_to(_pad_to(b, bk, 0), bn, 1)
+        ok, err, tol = close_to_plain(
+            out, matmul_plain(ap, bp, bm=bm, bk=bk, bn=bn)[:M, :N], None)
+        ms = time_call(lambda: tcm_matmul(a, b, tiles=(bm, bk, bn)),
+                       dev) * 1e3
+        check(f"kernel at load-served tile {M}x{K}x{N} {(bm, bk, bn)}",
+              tuple(out.shape) == (M, N)
+              and bool(torch.isfinite(out).all()) and ok,
+              f"max|err| {err:.3g} (tol {tol}), {ms:.4f} ms")
+        kernels.append({"shape": [M, K, N], "tile": [bm, bk, bn],
+                        "kernel_ms": ms, "max_abs_err": err})
+    return load, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -325,8 +535,12 @@ def main() -> int:
     if FAILURES:
         print(f"phase 3 failed: {FAILURES}", file=sys.stderr)
         return 1
+    phase_service()
+    if FAILURES:
+        print(f"phase 4 failed: {FAILURES}", file=sys.stderr)
+        return 1
 
-    print("== phase 4: kernels (times summed over the main path's unique "
+    print("== phase 5: kernels (times summed over the main path's unique "
           "shapes, each once)")
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:19"),

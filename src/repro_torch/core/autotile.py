@@ -24,7 +24,7 @@ from functools import lru_cache
 from typing import Dict, NamedTuple, Optional, Tuple
 
 from .arch import Arch, MemLevel
-from .einsum import matmul
+from .einsum import Einsum, matmul
 from .looptree import Loop, Storage
 from .mapper import tcm_map
 
@@ -305,6 +305,43 @@ class TilePlan(NamedTuple):
     modeled_s: Optional[float]
 
 
+def plan_einsum(M: int, K: int, N: int) -> Einsum:
+    """The block-unit einsum a plan of Z[M,N] = A[M,K] @ B[K,N] searches:
+    each dim in 64-wide blocks, at least one."""
+    return matmul("mm", max(M // BLOCK, 1), max(K // BLOCK, 1),
+                  max(N // BLOCK, 1))
+
+
+def plan_from_mapping(best, einsum: Einsum, M: int, K: int, N: int,
+                      smem_bytes: int = SMEM_BYTES,
+                      word_bytes: int = 2) -> TilePlan:
+    """The kernel's tile for the mapping ``best`` of the block-unit
+    ``einsum`` (the shape's own :func:`plan_einsum`, or a larger one that
+    covers it, such as a mapping service's bucket), and that mapping's
+    modeled latency where the tile is the mapping's own.
+
+    The tile is each tensor's held extent (:func:`_held_extents`), taken as
+    the kernel's tile by :func:`_kernel_tile` where :func:`kernel_takes`
+    accepts it, limited to the shape and clamped onto the kernel's tiles
+    (:func:`wgmma_tile` in bf16).  ``best`` None (no mapping) gives one
+    block per dim.
+    """
+    def limit(t):
+        return (min(M, t["m"] * BLOCK), min(K, t["k"] * BLOCK),
+                min(N, t["n"] * BLOCK))
+
+    def clamp(t):
+        return wgmma_tile(*limit(t)) if word_bytes == 2 else limit(t)
+
+    if best is None:
+        return TilePlan(clamp({"m": 1, "k": 1, "n": 1}), None)
+    held = _held_extents(best, einsum)
+    t = _kernel_tile(held, lambda t: kernel_takes(
+        *clamp(t), K, word_bytes, smem_bytes))
+    own = t == _own_tile(held) and clamp(t) == limit(t)
+    return TilePlan(clamp(t), best.latency if own else None)
+
+
 def tcm_matmul_plan(M: int, K: int, N: int,
                     smem_bytes: int = SMEM_BYTES,
                     word_bytes: int = 2) -> TilePlan:
@@ -318,24 +355,10 @@ def tcm_matmul_plan(M: int, K: int, N: int,
 def _search_plan(M: int, K: int, N: int, smem_bytes: int,
                  word_bytes: int) -> TilePlan:
     # one cache entry per shape, however the caller spells the defaults
-    def limit(t):
-        return (min(M, t["m"] * BLOCK), min(K, t["k"] * BLOCK),
-                min(N, t["n"] * BLOCK))
-
-    def clamp(t):
-        return wgmma_tile(*limit(t)) if word_bytes == 2 else limit(t)
-
-    ein = matmul("mm", max(M // BLOCK, 1), max(K // BLOCK, 1),
-                 max(N // BLOCK, 1))
+    ein = plan_einsum(M, K, N)
     best, _ = tcm_map(ein, plan_arch(smem_bytes, word_bytes),
                       objective="latency")
-    if best is None:
-        return TilePlan(clamp({"m": 1, "k": 1, "n": 1}), None)
-    held = _held_extents(best, ein)
-    t = _kernel_tile(held, lambda t: kernel_takes(
-        *clamp(t), K, word_bytes, smem_bytes))
-    own = t == _own_tile(held) and clamp(t) == limit(t)
-    return TilePlan(clamp(t), best.latency if own else None)
+    return plan_from_mapping(best, ein, M, K, N, smem_bytes, word_bytes)
 
 
 def tcm_matmul_tiles(M: int, K: int, N: int,

@@ -106,7 +106,7 @@ class MapperStats:
     gap_bound: float = 1.0
     n_truncated_units: int = 0
     n_retried_units: int = 0  # pool units re-run after a worker death
-    n_quarantined_units: int = 0  # poison units given up on
+    n_quarantined_units: int = 0  # poison units given up on (repro written)
     n_resumed_units: int = 0  # units served from a checkpoint journal
 
     def merge(self, other: "MapperStats") -> None:
@@ -780,9 +780,10 @@ class ProcessPoolEngine(SearchEngine):
     first death so a poison unit cannot keep taking hostages); the shared
     incumbent and budget draw-down survive pool replacement.  Units that
     keep killing workers fall back to in-process execution
-    (``serial_fallback``) and, failing that too, are quarantined with a
-    placeholder result whose zero lower bound keeps the driver's gap
-    certificate honest.  Completed
+    (``serial_fallback``) and, failing that too, are quarantined as
+    replayable JSON repros under ``quarantine_dir`` (default
+    ``.tcm_cache/quarantine/``) with a placeholder result whose zero lower
+    bound keeps the driver's gap certificate honest.  Completed
     ``WorkResult``s are never lost; see ``fault_stats`` and the
     ``n_retried_units``/``n_quarantined_units`` stats counters.
 
@@ -802,7 +803,8 @@ class ProcessPoolEngine(SearchEngine):
                  checkpoint=None,
                  max_retries: int = 2,
                  retry_backoff_s: float = 0.05,
-                 serial_fallback: bool = True):
+                 serial_fallback: bool = True,
+                 quarantine_dir: Optional[str] = None):
         self.workers = int(workers) if workers else (os.cpu_count() or 1)
         self.chunksize = chunksize
         self.start_method = start_method or _default_start_method()
@@ -811,6 +813,7 @@ class ProcessPoolEngine(SearchEngine):
         self.max_retries = int(max_retries)
         self.retry_backoff_s = float(retry_backoff_s)
         self.serial_fallback = bool(serial_fallback)
+        self.quarantine_dir = quarantine_dir
         # fault accounting for the whole engine lifetime (also folded into
         # the affected units' MapperStats, so drivers see it in merges)
         self.fault_stats = {"retries": 0, "pool_restarts": 0,
@@ -892,6 +895,10 @@ class ProcessPoolEngine(SearchEngine):
         meter after a batch, so one budget spans many engine runs."""
         if meter is not None and self._budget_values is not None:
             meter.charge(int(self._budget_values[2].value))
+
+    def _quarantine_root(self) -> str:
+        return self.quarantine_dir or os.path.join(".tcm_cache",
+                                                   "quarantine")
 
     def _robust_map(self, fn, items: Sequence[WorkUnit], chunksize: int,
                     tracer, on_give_up, serial_fn=None, on_result=None,
@@ -976,14 +983,21 @@ class ProcessPoolEngine(SearchEngine):
         return [out[u.index] for u in items], attempts
 
     def _give_up_result(self, tracer):
-        """Build the quarantine handler for a search phase: return a
-        placeholder WorkResult whose zero lower bound makes the driver's
-        gap certificate honestly infinite."""
+        """Build the quarantine handler for a search phase: write a
+        replayable repro, return a placeholder WorkResult whose zero lower
+        bound makes the driver's gap certificate honestly infinite."""
         def _quarantine(u: WorkUnit, err: str, attempts: int) -> WorkResult:
+            from .journal import write_unit_repro
+            path = None
+            try:
+                path = write_unit_repro(u, err, attempts,
+                                        self._quarantine_root())
+            except Exception:  # noqa: BLE001 — quarantine is best-effort
+                pass
             self.fault_stats["quarantined"] += 1
             if tracer is not None:
                 tracer.instant("quarantine", cat="fault", unit=u.index,
-                               error=err)
+                               error=err, repro=path)
             st = MapperStats()
             st.truncated = True
             st.n_quarantined_units = 1

@@ -27,14 +27,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from .configs import get_config
-from .core.autotile import attention_tile, tcm_matmul_plan, wgmma_tile
+from .core.autotile import (TilePlan, attention_tile, tcm_matmul_plan,
+                             wgmma_tile)
 from .kernels.ops import flash_attention_op, tcm_matmul
 from .models.config import ModelConfig
 from .netmap.planner import model_shapes, model_tiles
 
-__all__ = ["measure_matmul", "measure_flash_attention", "time_matmul",
-           "time_flash_attention", "run_model", "main_path_rows",
-           "attention_shape", "time_call", "resolve_device"]
+__all__ = ["time_matmul", "time_flash_attention", "run_model",
+           "main_path_rows", "attention_shape", "time_call", "resolve_device"]
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
@@ -106,87 +106,71 @@ def _report(kernel, shape, tiles, dflt, t_map, t_tcm, t_dflt, modeled_s,
 
 def time_matmul(a: torch.Tensor, b: torch.Tensor,
                 tiles: Tuple[int, int, int], modeled_s: Optional[float], *,
-                t_map: float, repeats: int = 3) -> dict:
+                t_map: float, repeats: int = 3
+                ) -> Tuple[dict, torch.Tensor]:
     """Report row: ``tcm_matmul`` on these operands at ``tiles`` against
     the default 128-cube tiling (clamped to the bf16 kernel's tiles by
-    ``wgmma_tile``), timed on the operands' device."""
+    ``wgmma_tile``), timed on the operands' device; and the output of the
+    last timed call at ``tiles``."""
     (M, K), N = a.shape, b.shape[1]
     dflt = (min(M, 128), min(K, 128), min(N, 128))
     if a.dtype == torch.bfloat16:
         dflt = wgmma_tile(*dflt)
-    t_tcm = time_call(lambda: tcm_matmul(a, b, tiles=tiles), a.device,
-                      repeats)
+    held = {}
+
+    def run():
+        held["out"] = tcm_matmul(a, b, tiles=tiles)
+
+    t_tcm = time_call(run, a.device, repeats)
     t_dflt = time_call(lambda: tcm_matmul(a, b, tiles=dflt), a.device,
                        repeats)
     return _report("matmul", (M, K, N), tiles, dflt, t_map, t_tcm, t_dflt,
-                   modeled_s, a.device)
+                   modeled_s, a.device), held["out"]
 
 
-def measure_matmul(M: int = 512, K: int = 512, N: int = 512, *,
-                   dtype: torch.dtype = torch.bfloat16, repeats: int = 3,
-                   device: str = "cuda", seed: int = 0) -> dict:
-    """Time the mapper-tiled matmul vs the default 128-cube tiling."""
-    dev = resolve_device(device)
-    t0 = time.perf_counter()
-    plan = tcm_matmul_plan(M, K, N, word_bytes=dtype.itemsize)
-    t_map = time.perf_counter() - t0
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    a = _randn((M, K), dtype, dev, gen)
-    b = _randn((K, N), dtype, dev, gen)
-    return time_matmul(a, b, plan.tiles, plan.modeled_s, t_map=t_map,
-                       repeats=repeats)
+def score_tiles(plan: TilePlan, Sq: int, Sk: int,
+                word_bytes: int) -> Tuple[int, int]:
+    """The attention kernel's (bq, bk) from a plan of the score matmul
+    ``S = Q @ K^T`` (per head: M=Sq, K=Dh, N=Sk): its bm becomes the query
+    tile, bn the kv tile, mapped onto the kernel's tiles by
+    ``core.autotile.attention_tile`` (bf16 prefill 256 x 128 -> 128 x 128;
+    decode 1 x 512 stays)."""
+    bm, _, bn = plan.tiles
+    return attention_tile(min(bm, Sq), min(bn, Sk), word_bytes)
 
 
 def attention_plan(Sq: int, Sk: int, Dh: int,
                    dtype: torch.dtype = torch.bfloat16
                    ) -> Tuple[Tuple[int, int], Optional[float]]:
-    """(bq, bk) from the score matmul ``S = Q @ K^T`` (per head: M=Sq, K=Dh,
-    N=Sk) — the mapper's bm becomes the query tile, bn the kv tile, mapped
-    onto the attention kernel's tiles by ``core.autotile.attention_tile``
-    (bf16 prefill 256 x 128 -> 128 x 128; decode 1 x 512 stays) — and that
-    mapping's modeled latency."""
+    """(bq, bk) from the mapper's plan of the score matmul
+    (:func:`score_tiles`) and that mapping's modeled latency."""
     plan = tcm_matmul_plan(Sq, Dh, Sk, word_bytes=dtype.itemsize)
-    bm, _, bn = plan.tiles
-    return (attention_tile(min(bm, Sq), min(bn, Sk), dtype.itemsize),
-            plan.modeled_s)
+    return score_tiles(plan, Sq, Sk, dtype.itemsize), plan.modeled_s
 
 
 def time_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          tiles: Tuple[int, int], modeled_s: Optional[float],
-                         *, causal: bool, t_map: float,
-                         repeats: int = 3) -> dict:
+                         *, causal: bool, t_map: float, repeats: int = 3
+                         ) -> Tuple[dict, torch.Tensor]:
     """Report row: ``flash_attention_op`` on these inputs at ``tiles``
     (bq, bk) against default 128 tiles (through ``attention_tile``), timed
-    on the inputs' device."""
+    on the inputs' device; and the output of the last timed call at
+    ``tiles``."""
     B, Sq, Hq, Dh = q.shape
     Sk = k.shape[1]
     bq, bkv = tiles
     dflt = attention_tile(min(128, Sq), min(128, Sk), q.element_size())
-    t_tcm = time_call(lambda: flash_attention_op(
-        q, k, v, causal=causal, bq=bq, bk=bkv), q.device, repeats)
+    held = {}
+
+    def run():
+        held["out"] = flash_attention_op(q, k, v, causal=causal, bq=bq,
+                                         bk=bkv)
+
+    t_tcm = time_call(run, q.device, repeats)
     t_dflt = time_call(lambda: flash_attention_op(
         q, k, v, causal=causal, bq=dflt[0], bk=dflt[1]), q.device, repeats)
     return _report("flash_attention", (B, Hq, Sq, Sk, Dh), tiles, dflt,
-                   t_map, t_tcm, t_dflt, modeled_s, q.device)
-
-
-def measure_flash_attention(B: int = 1, Hq: int = 4, Hkv: int = 4,
-                            Sq: int = 256, Sk: int = 256, Dh: int = 64, *,
-                            causal: bool = False,
-                            dtype: torch.dtype = torch.bfloat16,
-                            repeats: int = 3, device: str = "cuda",
-                            seed: int = 1) -> dict:
-    """Time flash attention with mapper-chosen (bq, bk) vs default 128s."""
-    dev = resolve_device(device)
-    t0 = time.perf_counter()
-    tiles, modeled_s = attention_plan(Sq, Sk, Dh, dtype)
-    t_map = time.perf_counter() - t0
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    q = _randn((B, Sq, Hq, Dh), dtype, dev, gen)
-    k = _randn((B, Sk, Hkv, Dh), dtype, dev, gen)
-    v = _randn((B, Sk, Hkv, Dh), dtype, dev, gen)
-    return time_flash_attention(q, k, v, tiles, modeled_s, causal=causal,
-                                t_map=t_map, repeats=repeats)
+                   t_map, t_tcm, t_dflt, modeled_s, q.device), held["out"]
 
 
 # --------------------------------------------------------------------------
@@ -276,10 +260,10 @@ def main_path_rows(calls: List[MatmulCall], attn: AttentionCall,
     """One report row per call of a :func:`run_model` result, on the
     call's own inputs and tiles, in order (the attention last)."""
     rows = [time_matmul(*c.inputs, c.tiles, c.modeled_s, t_map=c.t_map,
-                        repeats=repeats) for c in calls]
+                        repeats=repeats)[0] for c in calls]
     rows.append(time_flash_attention(*attn.inputs, attn.tiles, attn.modeled_s,
                                      causal=attn.causal, t_map=attn.t_map,
-                                     repeats=repeats))
+                                     repeats=repeats)[0])
     return rows
 
 

@@ -161,6 +161,15 @@ class Tracer:
         if events:
             self.events.extend(events)
 
+    def save(self, path) -> None:
+        """Write the buffer: ``*.jsonl`` -> JSONL event log, anything else
+        -> Chrome-trace/Perfetto JSON (see ``obs/export.py``)."""
+        from .export import write_chrome, write_jsonl
+        if str(path).endswith(".jsonl"):
+            write_jsonl(self.events, path)
+        else:
+            write_chrome(self.events, path)
+
 
 def event_sort_key(ev: Event):
     """Chronological ordering key (stable across merged buffers)."""

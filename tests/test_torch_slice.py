@@ -15,8 +15,10 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.kernels.ref import attention_ref as ref_attention
 from repro_torch.configs import get_config
-from repro_torch.measure import (main_path_rows, measure_flash_attention,
-                                 measure_matmul, run_model)
+from repro_torch.measure import main_path_rows, run_model
+from repro_torch.serve_map import MappingService
+from repro_torch.serve_map.measure import (measure_flash_attention,
+                                           measure_matmul)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -52,11 +54,12 @@ def test_slice_matches_reference_path(mode, batch):
                                rtol=2e-5, atol=2e-5)
 
 
-def test_measure_rows_on_cpu():
-    mm = measure_matmul(128, 64, 192, dtype=torch.float32, repeats=1,
-                        device="cpu")
-    fa = measure_flash_attention(1, 2, 1, 8, 64, 32, repeats=1,
-                                 device="cpu")
+def test_measure_rows_on_cpu(tmp_path):
+    with MappingService(cache_root=tmp_path, background_warm=False) as svc:
+        mm = measure_matmul(svc, 128, 64, 192, dtype=torch.float32,
+                            repeats=1, device="cpu")
+        fa = measure_flash_attention(svc, 1, 2, 8, 64, 32, repeats=1,
+                                     device="cpu")
     keys = {"kernel", "shape", "tiles", "default_tiles", "map_source",
             "map_latency_ms", "gap_bound", "measured_s", "default_s",
             "speedup_vs_default", "modeled_s", "measured_vs_modeled",
@@ -81,13 +84,14 @@ def test_main_path_rows_time_the_driven_calls():
     assert [tuple(r["shape"]) for r in rows[:-1]] == [c.shape for c in calls]
 
 
-def test_measure_needs_cuda_unless_cpu_asked():
+def test_measure_needs_cuda_unless_cpu_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists here")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        measure_matmul(64, 64, 64)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        measure_flash_attention()
+    with MappingService(cache_root=tmp_path, background_warm=False) as svc:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            measure_matmul(svc, 64, 64, 64)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            measure_flash_attention(svc)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_model(get_config("qwen1_5_0_5b", smoke=True))
 
