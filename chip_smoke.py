@@ -33,9 +33,20 @@ Phases (each prints its own lines; any failure exits nonzero):
      {"service": {...}} with map sources and times, tiles, kernel times and
      errors, and per load run hit and tile p50/p99, sources, searches and
      coalescing;
-  5. one JSON line with each kernel's launches on the main path (phase 3),
+  5. the served model, qwen1.5-0.5b at full width through the model stack
+     (``repro_torch.models``, ``serving.engine``, ``launch.serve``; torch
+     matmuls, no kernel of this repo): (a) in f32 from seeded weights, the
+     card's logits at every greedy step (batch 2, prompt 32, 4 tokens) are
+     held against the port's own CPU run, and the greedy tokens must be
+     equal; (b) ``launch.serve.main`` serves batch 8 x prompt 1024 + 32
+     generated tokens in bf16 with ``--map-service``, and one JSON line
+     {"served": {...}} carries its prefill and decode times, tokens/s, peak
+     memory, the map-service summary, the bounds of prefill and decode,
+     and one more run under ``torch.profiler`` (the card's activities and
+     busy time in prefill and per decode step);
+  6. one JSON line with each kernel's launches on the main path (phase 3),
      error and times;
-  6. the last line: {"ok": true, "device": {...}}.
+  7. the last line: {"ok": true, "device": {...}}.
 
 Needs torch with CUDA, nvcc and one card; it fails without them.
 """
@@ -65,14 +76,17 @@ from repro_torch.kernels.matmul import (matmul_cuda,  # noqa: E402
                                         wgmma_instances)
 from repro_torch.kernels.ops import _pad_to, tcm_matmul  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, matmul_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.measure import (_randn, main_path_rows,  # noqa: E402
                                  run_model, time_call)
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.netmap.planner import model_shapes  # noqa: E402
 from repro_torch.serve_map import MappingService  # noqa: E402
 from repro_torch.serve_map.__main__ import main as serve_map_main  # noqa
 from repro_torch.serve_map.measure import (  # noqa: E402
     measure_flash_attention, run_tile_load, service_matmul_tiles,
     tile_request_shapes)
+from repro_torch.serving.engine import make_serve_steps  # noqa: E402
 
 # H100 SXM datasheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -95,6 +109,15 @@ BENCH_ARGS = ["bench", "--fast", "--config", "qwen1_5_0_5b", "--requests",
               "60", "--clients", "8", "--gate-hit-p99-ms", "50",
               "--gate-deadline-ratio", "0.95", "--gate-coalesce-ratio",
               "0.5"]
+
+# the served model (phase 5): (batch, prompt, greedy tokens) of the f32
+# card-against-CPU check, and the bf16 serve of PERF.md's main path
+SERVE_CHECK = (2, 32, 4)
+SERVE = (8, 1024, 32)
+# f32 logits on the card against the CPU's, elementwise: the two sum each
+# product in another order (no TF32), so they agree to rounding; 1e-4
+# (absolute and relative) is the port's f32 tolerance against JAX
+LOGIT_TOL = 1e-4
 
 MM_SHAPES = [(128, 128, 128), (256, 128, 384), (512, 256, 128),
              (384, 384, 384)]
@@ -521,6 +544,112 @@ def phase_service_load(cfg, dev) -> tuple:
     return load, kernels
 
 
+def greedy(cfg, params, dev, B, P, G) -> tuple:
+    """The serving steps' greedy run on ``dev``: each step's logits (on
+    the CPU) and the tokens."""
+    prefill_step, decode_step = make_serve_steps(cfg)
+    batch = serve.make_batch(cfg, B, P, dev, seed=1)
+    cache = lm.init_cache(cfg, B, P + G, dev)
+    logits, cache = prefill_step(params, batch, cache)
+    steps, toks = [logits.cpu()], [logits.argmax(-1)[:, None]]
+    for _ in range(G - 1):
+        logits, cache = decode_step(params, toks[-1], cache)
+        steps.append(logits.cpu())
+        toks.append(logits.argmax(-1)[:, None])
+    return steps, torch.cat(toks, dim=1).cpu()
+
+
+def served_bounds(cfg, B, P, G) -> dict:
+    """Least times of the bf16 serve, from its shapes: a decode step reads
+    the bf16 weights it multiplies (f32 norm scales, the head, the B
+    embedding rows) and the valid KV cache, and writes one K/V row per
+    layer and the f32 logits; prefill does the matmuls of B*P tokens, the
+    causal attention (4 Dh operations a (query, key) pair), and the head
+    on the last position, and moves the weights once, the K/V it caches
+    and the logits."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    q, kv, ff = cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    layer_macs = 2 * d * q + 2 * d * kv + 3 * d * ff  # per token
+    weights = (L * (layer_macs + q + 2 * kv) * 2 + (2 * L + 1) * d * 4
+               + d * V * 2)
+    kv_row = 2 * kv * 2  # K and V of one token in one layer, bf16
+    decode = [bound_s(weights + B * d * 2 + L * B * (P + i + 1) * kv_row
+                      + L * B * kv_row + B * V * 4,
+                      2 * B * (L * layer_macs + d * V)
+                      + L * 4 * B * cfg.n_heads * cfg.d_head * (P + i + 1))
+              for i in range(G - 1)]
+    flops = (2 * B * P * L * layer_macs + 2 * B * d * V
+             + L * 4 * B * cfg.n_heads * cfg.d_head * P * (P + 1) // 2)
+    nbytes = weights + B * P * d * 2 + L * B * P * kv_row + B * V * 4
+    pb, pby, _, _ = bound_s(nbytes, flops)
+    db = sum(b[0] for b in decode) / len(decode)
+    return {"prefill_ms": pb * 1e3, "prefill_by": pby,
+            "prefill_tflop": flops / 1e12,
+            "decode_ms_per_step": db * 1e3, "decode_by": decode[0][1],
+            "tok_s": B / db}
+
+
+def phase_served_model() -> None:
+    print("== phase 5: served model, qwen1.5-0.5b at full width")
+    B, P, G = SERVE_CHECK
+    cfg = get_config("qwen1_5_0_5b").scaled(dtype="float32")
+    t0 = time.perf_counter()
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = lm.tree_map(lambda t: t.to("cuda"), cpu)
+    print(f"  f32 weights drawn and copied in "
+          f"{time.perf_counter() - t0:.1f} s")
+    want, want_toks = greedy(cfg, cpu, torch.device("cpu"), B, P, G)
+    got, got_toks = greedy(cfg, card, torch.device("cuda"), B, P, G)
+    del cpu, card
+    for step, (a, b) in enumerate(zip(got, want)):
+        ok, err = close(a, b, LOGIT_TOL)
+        check(f"f32 logits, card against CPU, step {step} "
+              f"{'(prefill)' if step == 0 else '(decode)'}",
+              ok and a.shape == (B, cfg.vocab)
+              and bool(torch.isfinite(a).all()),
+              f"max|d logits| {err:.3g} of max|logit| "
+              f"{b.abs().max().item():.3g} (tol {LOGIT_TOL} + "
+              f"{LOGIT_TOL}|cpu|)")
+    check("greedy tokens, card equal to CPU",
+          torch.equal(got_toks, want_toks), f"{got_toks.tolist()}")
+    torch.cuda.empty_cache()
+
+    B, P, G = SERVE
+    with tempfile.TemporaryDirectory(prefix="tcm-serve-model-") as tmp:
+        path = os.path.join(tmp, "serve.json")
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the mapping service caches under the cwd
+        try:
+            gen = serve.main(["--arch", "qwen1.5-0.5b", "--batch", str(B),
+                              "--prompt-len", str(P), "--gen", str(G),
+                              "--map-service", "--profile", "--json",
+                              path])
+        finally:
+            os.chdir(cwd)
+        with open(path) as f:
+            rep = json.load(f)
+    cfg = get_config("qwen1_5_0_5b")
+    plan = rep["map_service"]
+    check(f"bf16 serve {B}x{P} + {G}", gen.shape == (B, G)
+          and bool(((gen >= 0) & (gen < cfg.vocab)).all())
+          and rep["device"] == torch.cuda.get_device_name(0)
+          and plan["requests"] == 6 * G,
+          f"prefill {rep['prefill_ms']:.3f} ms, decode "
+          f"{rep['decode_ms_per_step']:.3f} ms a step, "
+          f"{rep['tok_s']:.1f} tokens/s, peak "
+          f"{rep['peak_bytes'] / 2**30:.3f} GiB; map-service "
+          f"{plan['requests']} queries, {plan['searches']} searches")
+    rep["bounds"] = served_bounds(cfg, B, P, G)
+    prof = rep["profile"]["decode_per_step"]
+    busy = prof["device_ms"]
+    share = (None if busy is None
+             else f"{busy / rep['decode_ms_per_step']:.3f}")
+    print(f"  profiled decode step: {prof['activities']:.0f} device "
+          f"activities, busy {busy} ms; busy share of the unprofiled step "
+          f"{share} (None: the profiler traced no device activity)")
+    print(json.dumps({"served": rep}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -540,7 +669,12 @@ def main() -> int:
         print(f"phase 4 failed: {FAILURES}", file=sys.stderr)
         return 1
 
-    print("== phase 5: kernels (times summed over the main path's unique "
+    phase_served_model()
+    if FAILURES:
+        print(f"phase 5 failed: {FAILURES}", file=sys.stderr)
+        return 1
+
+    print("== phase 6: kernels (times summed over the main path's unique "
           "shapes, each once)")
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:19"),

@@ -1,0 +1,385 @@
+"""Core layers on PyTorch: norms, RoPE, chunked attention, MLP, MoE.
+
+Port of ``repro.models.layers``.  Layers are functions over explicit
+parameter dicts laid out as the reference's pytrees, so weights carry
+across leaf for leaf (``models.weights.params_from_numpy``).  Where the
+port differs:
+
+- parameter creators draw from a ``torch.Generator`` (``jax.random`` cannot
+  be reproduced) and return the parameters only: the reference's sharding
+  specs have no meaning on one device;
+- ``flash_attention`` is the forward pass; its manual backward
+  (reference ``:158-239``) waits for the training slice;
+- a KV cache holds its fill index ``idx`` as a host int, not a 0-d device
+  array (a device index would force a host sync in every layer), and is
+  written in place, clamped as ``lax.dynamic_update_slice`` clamps.
+
+Every ``p[...].to(dt)`` is the reference's ``.astype(dt)``: a copy on
+every call for a parameter kept in another dtype, none for one already
+cast (``models.weights.cast_for_compute``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..distributed.sharding import constrain, constrain_any
+
+Params = Dict
+
+
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """A Python scalar in a JAX op takes the array's dtype (weak typing),
+    so the reference rounds it to that dtype first; torch would not."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms / rope
+# ---------------------------------------------------------------------------
+
+def rmsnorm_params(d: int, dtype, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * p["scale"].float()).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: (..., S).  A bf16 ``x`` times the f32
+    cos/sin promotes to f32 and is cast back, as in the reference."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., :, None].float() * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (streaming softmax over KV chunks, torch ops)
+# ---------------------------------------------------------------------------
+
+def attention_params(cfg, gen: torch.Generator) -> Params:
+    dt = cfg.torch_param_dtype
+    p = {
+        "wq": _init(gen, (cfg.d_model, cfg.q_dim), dt),
+        "wk": _init(gen, (cfg.d_model, cfg.kv_dim), dt),
+        "wv": _init(gen, (cfg.d_model, cfg.kv_dim), dt),
+        "wo": _init(gen, (cfg.q_dim, cfg.d_model), dt,
+                    scale=1.0 / math.sqrt(cfg.q_dim)),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                        ("bv", cfg.kv_dim)):
+            p[name] = torch.zeros((n,), dtype=dt, device=gen.device)
+    return p
+
+
+def _mask_for(causal: bool, window: int, q_pos, k_pos,
+              kv_valid: int) -> torch.Tensor:
+    mask = (k_pos < kv_valid)[None, :]
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return mask  # (qc, kc)
+
+
+def _chunk_masked(causal: bool, window: int, q_lo: int, q_hi: int,
+                  k_lo: int, k_hi: int, kv_valid: int) -> bool:
+    """Whether every (q, k) of a block is masked.  Skipping such a block is
+    exact for every row that sees a key: it would add p = 0 after a finite
+    running max, and before one its sums are zeroed by corr = 0."""
+    return (k_lo >= kv_valid or (causal and k_lo > q_hi)
+            or (window > 0 and k_hi <= q_lo - window))
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset: int = 0, q_chunk: int = 512,
+                    kv_chunk: int = 512, kv_valid: Optional[int] = None):
+    """Streaming softmax attention, chunked over q and kv (forward only).
+
+    q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh).  GQA: Hq % Hkv == 0.
+    ``q_offset`` is the absolute position of q[0] relative to k[0] (decode
+    with a cache passes the fill index); keys at or past ``kv_valid``
+    (default Sk) are masked.  Scores and the running (m, l, acc) are f32,
+    p is cast to q's dtype before P.V; masked scores are -1e30, m starts
+    at -inf, l is floored at 1e-30.  Returns (B, Sq, Hq, Dh).
+    """
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    kv_chunk = min(kv_chunk, Sk)
+    q_chunk = min(q_chunk, Sq)
+    nk = -(-Sk // kv_chunk)
+    nq = -(-Sq // q_chunk)
+    pad_k, pad_q = nk * kv_chunk - Sk, nq * q_chunk - Sq
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    qg = q.reshape(B, nq * q_chunk, Hkv, rep, Dh)
+    kv_valid = Sk if kv_valid is None else int(kv_valid)
+    scale = weak_scalar(1.0 / math.sqrt(Dh), q.dtype)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q_lo = q_offset + qi * q_chunk
+        q_pos = q_lo + torch.arange(q_chunk, device=dev)
+        qb = (qg[:, qi * q_chunk:(qi + 1) * q_chunk] * scale).float()
+        m = torch.full((B, Hkv, rep, q_chunk), -math.inf, device=dev)
+        l = torch.zeros((B, Hkv, rep, q_chunk), device=dev)
+        acc = torch.zeros((B, Hkv, rep, q_chunk, Dh), device=dev)
+        for ci in range(nk):
+            k_lo = ci * kv_chunk
+            if _chunk_masked(causal, window, q_lo, q_lo + q_chunk - 1, k_lo,
+                             k_lo + kv_chunk - 1, kv_valid):
+                continue
+            kblk = k[:, k_lo:k_lo + kv_chunk].float()
+            vblk = v[:, k_lo:k_lo + kv_chunk]
+            k_pos = k_lo + torch.arange(kv_chunk, device=dev)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qb, kblk)
+            mask = _mask_for(causal, window, q_pos, k_pos, kv_valid)
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgd->bgrqd", p.to(q.dtype).float(), vblk.float())
+            m = m_new
+        l = torch.clamp_min(l, 1e-30)
+        outs.append((acc / l[..., None]).permute(0, 3, 1, 2, 4).to(q.dtype))
+    out = torch.cat(outs, dim=1)  # (B, nq*qc, Hkv, rep, Dh)
+    return out.reshape(B, nq * q_chunk, Hq, Dh)[:, :Sq]
+
+
+def _qkv(cfg, p: Params, x, src):
+    B, S, _ = x.shape
+    dt = cfg.torch_dtype
+    q = x @ p["wq"].to(dt)
+    k = src @ p["wk"].to(dt)
+    v = src @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    Sk = src.shape[1]
+    q = constrain_any(q.reshape(B, S, cfg.n_heads, cfg.d_head),
+                      [("batch", None, "heads", None),
+                       ("batch", "act_seq", None, None)])
+    k = constrain_any(k.reshape(B, Sk, cfg.n_kv_heads, cfg.d_head),
+                      [("batch", None, "kv", None),
+                       ("batch", "act_seq", None, None)])
+    v = constrain_any(v.reshape(B, Sk, cfg.n_kv_heads, cfg.d_head),
+                      [("batch", None, "kv", None),
+                       ("batch", "act_seq", None, None)])
+    return q, k, v
+
+
+def update_slice(buf: torch.Tensor, upd: torch.Tensor,
+                 start: int) -> torch.Tensor:
+    """``lax.dynamic_update_slice(buf, upd, (0, start, ...))`` in place: the
+    start is clamped so that the update fits, as XLA clamps it."""
+    start = min(max(start, 0), buf.shape[1] - upd.shape[1])
+    buf[:, start:start + upd.shape[1]] = upd
+    return buf
+
+
+def attention_block(cfg, p: Params, x, positions, *, cache=None,
+                    causal=True, window=0, kv_from=None):
+    """Full attention block; returns (out, new_cache).
+
+    cache layouts (decode), updated in place:
+      full:  dict(k=(B,Smax,Hkv,Dh), v=..., idx=int) — global attention.
+      ring:  same tensors with Smax == window — local attention keeps only
+             the last ``window`` tokens; keys are stored *already roped* at
+             their absolute positions, slot = pos % window.
+    kv_from: cross-attention memory (B, Sm, d) — non-causal, no cache.
+    """
+    B, S, _ = x.shape
+    dt = cfg.torch_dtype
+    q, k, v = _qkv(cfg, p, x, x if kv_from is None else kv_from)
+
+    if kv_from is not None:
+        out = flash_attention(q, k, v, causal=False)
+        return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt), None
+
+    new_cache = None
+    if cache is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        idx = cache["idx"]
+        ck, cv = cache["k"], cache["v"]
+        Smax = ck.shape[1]
+        ring = window and Smax == window
+        qpos = (idx + torch.arange(S, device=x.device))[None, :].expand(B, S)
+        q = rope(q, qpos, cfg.rope_theta)
+        k = rope(k, qpos, cfg.rope_theta)
+        if ring:
+            if S == 1:
+                slot = idx % window
+                update_slice(ck, k.to(dt), slot)
+                update_slice(cv, v.to(dt), slot)
+                out = flash_attention(q, ck, cv, causal=False,
+                                      kv_valid=min(idx + 1, window))
+            else:
+                # windowed prefill: compute without the cache, then stash
+                # the last `window` roped K/V at their ring slots
+                assert S >= window, "prefill shorter than window"
+                out = flash_attention(q, k, v, causal=True, window=window,
+                                      q_offset=0)
+                last = torch.arange(S - window, S, device=x.device)
+                slots = last % window
+                ck.zero_()[:, slots] = k[:, last].to(dt)
+                cv.zero_()[:, slots] = v[:, last].to(dt)
+        else:
+            update_slice(ck, k.to(dt), idx)
+            update_slice(cv, v.to(dt), idx)
+            out = flash_attention(q, ck, cv, causal=True, window=window,
+                                  q_offset=idx, kv_valid=idx + S)
+        new_cache = {"k": ck, "v": cv, "idx": idx + S}
+    out = out.reshape(B, S, cfg.q_dim)
+    return out @ p["wo"].to(dt), new_cache
+
+
+def cross_attention_cached(cfg, p: Params, x, ck, cv):
+    """Cross-attention against precomputed (cached) memory K/V."""
+    B, S, _ = x.shape
+    dt = cfg.torch_dtype
+    q = x @ p["wq"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
+    out = flash_attention(q, ck, cv, causal=False)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt)
+
+
+def cross_kv(cfg, p: Params, memory):
+    dt = cfg.torch_dtype
+    B, Sm, _ = memory.shape
+    k = memory @ p["wk"].to(dt)
+    v = memory @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return (k.reshape(B, Sm, cfg.n_kv_heads, cfg.d_head),
+            v.reshape(B, Sm, cfg.n_kv_heads, cfg.d_head))
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU) and MoE
+# ---------------------------------------------------------------------------
+
+def mlp_params(cfg, gen: torch.Generator) -> Params:
+    dt = cfg.torch_param_dtype
+    return {
+        "wg": _init(gen, (cfg.d_model, cfg.d_ff), dt),
+        "wu": _init(gen, (cfg.d_model, cfg.d_ff), dt),
+        "wd": _init(gen, (cfg.d_ff, cfg.d_model), dt,
+                    scale=1.0 / math.sqrt(cfg.d_ff)),
+    }
+
+
+def mlp(cfg, p: Params, x):
+    dt = cfg.torch_dtype
+    g = F.silu(constrain(x @ p["wg"].to(dt), ("batch", None, "mlp")))
+    u = constrain(x @ p["wu"].to(dt), ("batch", None, "mlp"))
+    return constrain((g * u) @ p["wd"].to(dt), ("batch", None, None))
+
+
+def moe_params(cfg, gen: torch.Generator) -> Params:
+    dt = cfg.torch_param_dtype
+    E = cfg.n_experts
+    return {
+        "router": _init(gen, (cfg.d_model, E), dt),
+        "wg": _init(gen, (E, cfg.d_model, cfg.d_ff), dt),
+        "wu": _init(gen, (E, cfg.d_model, cfg.d_ff), dt),
+        "wd": _init(gen, (E, cfg.d_ff, cfg.d_model), dt,
+                    scale=1.0 / math.sqrt(cfg.d_ff)),
+    }
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``: the k largest along the last axis, in descending
+    order, the lower index first among equal values (``torch.topk`` does
+    not promise an order for ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe(cfg, p: Params, x):
+    """Top-k token-choice MoE with fixed expert capacity (dropping).
+
+    Returns (out, aux_loss).  Tokens past an expert's capacity go to a
+    scratch slot at index ``capacity`` and are weighted 0 on the way back.
+    The scatters accumulate with ``index_put_``; on CUDA the order of the
+    additions into one row is not fixed.
+    """
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    dt = cfg.torch_dtype
+    logits = (xt @ p["router"].float().to(dt)).float()  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = top_k(probs, K)  # (T, K)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(0)
+    flat_expert = expert_idx.reshape(-1)  # (T*K,)
+    ce = torch.bincount(flat_expert, minlength=E).float() / (T * K)
+    aux = E * torch.sum(me * ce)
+
+    capacity = int(max(1, math.ceil(T * K * cfg.capacity_factor / E)))
+    # position of each (token, k) within its expert's queue
+    onehot = F.one_hot(flat_expert, E)  # (T*K, E)
+    pos_in_expert = torch.cumsum(onehot, dim=0) - onehot
+    pos = pos_in_expert.gather(1, flat_expert[:, None])[:, 0]  # (T*K,)
+    keep = pos < capacity
+    slot = torch.where(keep, pos, capacity)  # overflow -> scratch slot
+
+    # dispatch: (E, capacity+1, D); scratch row absorbs dropped tokens
+    buf = torch.zeros((E, capacity + 1, D), dtype=dt, device=x.device)
+    tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
+    buf.index_put_((flat_expert, slot), xt[tok_idx].to(dt), accumulate=True)
+    buf = constrain(buf, ("expert", None, None))
+
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"].to(dt)))
+    u = torch.einsum("ecd,edf->ecf", buf, p["wu"].to(dt))
+    y = torch.einsum("ecf,efd->ecd", h * u, p["wd"].to(dt))
+
+    # combine
+    gathered = y[flat_expert, slot]  # (T*K, D)
+    w = (gate_vals.reshape(-1) * keep).to(dt)
+    out = torch.zeros((T, D), dtype=dt, device=x.device).index_put_(
+        (tok_idx,), gathered * w[:, None], accumulate=True)
+    return out.reshape(B, S, D), aux
+
+
+def embedding_params(cfg, gen: torch.Generator) -> Params:
+    return {"tok": _init(gen, (cfg.vocab, cfg.d_model),
+                         cfg.torch_param_dtype, scale=1.0)}

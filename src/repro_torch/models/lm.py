@@ -1,0 +1,407 @@
+"""Model assembly on PyTorch: one functional API over every assigned family.
+
+Port of ``repro.models.lm``:
+
+  init(cfg, generator, device)         -> params
+  forward(cfg, params, tokens, ...)    -> (logits, caches, aux)
+  loss_fn(cfg, params, batch)          -> (loss, parts)   (value only)
+  init_cache(cfg, batch, max_len, device) -> cache
+  prefill(cfg, params, batch, cache)   -> (last_logits, cache)
+  decode_step(cfg, params, tok, cache) -> (logits, cache)
+
+Parameters keep the reference's pytree layout, layer stacks included: a
+group's parameters are stacked along a leading layer axis, so JAX weights
+carry across leaf for leaf (``models.weights``).  The reference's
+``lax.scan`` over a stack is a Python loop over that axis here.
+
+The cache differs in layout: a group's cache is a list with one entry per
+layer (a tuple over the group's kinds), not stacked arrays; the fill
+index ``idx`` of an attention cache and the cache's ``pos`` are host
+ints; and the steps update the cache in place (the reference donates it).
+
+Families:
+  dense  — qwen1.5-0.5b, minitron-8b, yi-34b, phi3-mini: GQA + SwiGLU
+  moe    — phi3.5-moe, llama4-scout: dense attention + top-k expert MLP
+  ssm    — mamba2-130m: attention-free SSD blocks
+  hybrid — recurrentgemma-2b: RG-LRU blocks + local attention (1:2 pattern)
+  vlm    — llava-next-34b: dense backbone; patch-embedding frontend stub
+  audio  — seamless-m4t-medium: encoder-decoder; frame-embedding frontend
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from ..distributed.sharding import constrain
+from .config import ModelConfig
+from .layers import (_init, attention_block, attention_params,
+                     cross_attention_cached, cross_kv, embedding_params, mlp,
+                     mlp_params, moe, moe_params, rmsnorm, rmsnorm_params,
+                     weak_scalar)
+from .rglru import init_rglru_state, rglru_block, rglru_params
+from .ssm import init_ssm_state, ssm_block, ssm_params
+
+Params = Dict[str, Any]
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every leaf of nested dicts, lists and tuples (None stays
+    None)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _stack(trees: List[Params]) -> Params:
+    """Stacks same-shaped parameter dicts along a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# layer kinds: 'attn' (causal), 'enc' (non-causal), 'wattn' (local window),
+# 'xattn' (causal self + cross), 'ssm', 'rglru'
+# ---------------------------------------------------------------------------
+
+def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator):
+    pdt = cfg.torch_param_dtype
+    p: Params = {"ln1": rmsnorm_params(cfg.d_model, pdt, gen.device)}
+    if kind in ("attn", "enc", "wattn", "xattn"):
+        p["attn"] = attention_params(cfg, gen)
+        if kind == "xattn":
+            p["cross"] = attention_params(cfg, gen)
+            p["ln_cross"] = rmsnorm_params(cfg.d_model, pdt, gen.device)
+    elif kind == "ssm":
+        p["ssm"] = ssm_params(cfg, gen)
+    elif kind == "rglru":
+        p["rglru"] = rglru_params(cfg, gen)
+    else:
+        raise ValueError(kind)
+    if kind != "ssm":
+        p["ln2"] = rmsnorm_params(cfg.d_model, pdt, gen.device)
+        if cfg.n_experts and kind == "attn":
+            p["moe"] = moe_params(cfg, gen)
+        else:
+            p["mlp"] = mlp_params(cfg, gen)
+    return p
+
+
+def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x, positions,
+                 cache=None, enc_out=None):
+    """One block; returns (x, new_cache, aux)."""
+    aux = 0.0
+    x = constrain(x, ("batch", "act_seq", None))
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    new_cache = cache
+    if kind in ("attn", "enc", "wattn"):
+        win = cfg.window if kind == "wattn" else 0
+        a, nc = attention_block(
+            cfg, p["attn"], h, positions,
+            cache=None if cache is None else cache["attn"],
+            causal=(kind != "enc"), window=win)
+        if cache is not None:
+            new_cache = dict(cache, attn=nc)
+        x = x + a
+    elif kind == "xattn":
+        a, nc = attention_block(
+            cfg, p["attn"], h, positions,
+            cache=None if cache is None else cache["attn"], causal=True)
+        x = x + a
+        hc = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        if cache is not None and "xk" in cache:
+            a2 = cross_attention_cached(cfg, p["cross"], hc,
+                                        cache["xk"], cache["xv"])
+        else:
+            assert enc_out is not None
+            a2, _ = attention_block(cfg, p["cross"], hc, positions,
+                                    kv_from=enc_out)
+        x = x + a2
+        if cache is not None:
+            new_cache = dict(cache, attn=nc)
+    elif kind == "ssm":
+        a, st = ssm_block(cfg, p["ssm"], h,
+                          None if cache is None else cache["ssm"])
+        if cache is not None:
+            new_cache = dict(cache, ssm=st)
+        return x + a, new_cache, aux
+    elif kind == "rglru":
+        a, st = rglru_block(cfg, p["rglru"], h,
+                            None if cache is None else cache["rglru"])
+        if cache is not None:
+            new_cache = dict(cache, rglru=st)
+        x = x + a
+    else:
+        raise ValueError(kind)
+
+    x = constrain(x, ("batch", "act_seq", None))
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if "moe" in p:
+        m, a_moe = moe(cfg, p["moe"], h)
+        aux = aux + a_moe.float()
+    else:
+        m = mlp(cfg, p["mlp"], h)
+    return constrain(x + m, ("batch", "act_seq", None)), new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# stacks
+# ---------------------------------------------------------------------------
+
+def layer_pattern(cfg: ModelConfig) -> Tuple[str, ...]:
+    if cfg.family == "ssm":
+        return ("ssm",) * cfg.n_layers
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rglru", "rglru", "wattn")
+        full = pat * ((cfg.n_layers + len(pat) - 1) // len(pat))
+        return full[:cfg.n_layers]
+    if cfg.family == "audio":
+        return ("enc",) * cfg.enc_layers + ("xattn",) * cfg.dec_layers
+    return ("attn",) * cfg.n_layers
+
+
+def _stack_groups(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    pat = layer_pattern(cfg)
+    if cfg.family == "hybrid":
+        base = cfg.block_pattern or ("rglru", "rglru", "wattn")
+        n_groups = cfg.n_layers // len(base)
+        out: List[Tuple[Tuple[str, ...], int]] = []
+        if n_groups:
+            out.append((tuple(base), n_groups))
+        for kind in pat[n_groups * len(base):]:
+            out.append(((kind,), 1))
+        return out
+    if cfg.family == "audio":
+        return [(("enc",), cfg.enc_layers), (("xattn",), cfg.dec_layers)]
+    return [((pat[0],), cfg.n_layers)]
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
+    """Random parameters in the reference's layout, drawn from
+    ``generator`` on its own device, then moved to ``device``: a CPU
+    generator gives the same weights on every device.  (``jax.random``
+    cannot be reproduced; the parity tests carry JAX's weights across
+    instead.)"""
+    gen = generator
+    pdt = cfg.torch_param_dtype
+    params: Params = {"embed": embedding_params(cfg, gen),
+                      "final_norm": rmsnorm_params(cfg.d_model, pdt,
+                                                   gen.device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _init(gen, (cfg.d_model, cfg.vocab), pdt)
+    if cfg.frontend != "none":
+        params["frontend_proj"] = _init(
+            gen, (cfg.frontend_dim, cfg.d_model), pdt)
+    params["groups"] = [
+        [_stack([_layer_params(cfg, kind, gen) for _ in range(count)])
+         for kind in kinds]
+        for kinds, count in _stack_groups(cfg)]
+    return tree_map(lambda t: t.to(device), params)
+
+
+def _apply_group(cfg, kinds, count, group_params, x, positions,
+                 caches=None, enc_out=None):
+    """The group's ``count`` layers in order; ``caches`` is the group's
+    list of per-layer caches.  Returns (x, new_caches, aux)."""
+    aux = 0.0
+    new_caches = None if caches is None else []
+    for i in range(count):
+        layer_params = tree_map(lambda a: a[i], group_params)
+        layer_cache = None if caches is None else caches[i]
+        ncs = []
+        for ki, kind in enumerate(kinds):
+            c = None if layer_cache is None else layer_cache[ki]
+            x, nc, a = _layer_apply(cfg, kind, layer_params[ki], x,
+                                    positions, cache=c, enc_out=enc_out)
+            ncs.append(nc)
+            aux = aux + a
+        if caches is not None:
+            new_caches.append(tuple(ncs))
+    return x, new_caches, aux
+
+
+def _embed(cfg, params, tokens):
+    dt = cfg.torch_dtype
+    e = params["embed"]["tok"][tokens].to(dt)
+    return constrain(e * weak_scalar(math.sqrt(cfg.d_model), dt),
+                     ("batch", "act_seq", None))
+
+
+def _head(cfg, params, x):
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        w = params["embed"]["tok"].to(cfg.torch_dtype).T
+    else:
+        w = params["lm_head"].to(cfg.torch_dtype)
+    return constrain((x @ w).float(), ("batch", "act_seq", "vocab"))
+
+
+def _encoder_out(cfg, params, enc_frames):
+    B = enc_frames.shape[0]
+    dt = cfg.torch_dtype
+    fe = enc_frames.to(dt) @ params["frontend_proj"].to(dt)
+    pos = torch.arange(fe.shape[1], device=fe.device)[None, :].expand(B, -1)
+    kinds, count = _stack_groups(cfg)[0]
+    enc_x, _, _ = _apply_group(cfg, kinds, count, params["groups"][0],
+                               fe, pos)
+    return enc_x
+
+
+def _trunk(cfg, params, tokens, embeds=None, enc_frames=None, caches=None,
+           positions=None):
+    """``forward`` up to the final norm: (hidden, new_caches, aux)."""
+    x = _embed(cfg, params, tokens)
+    B = x.shape[0]
+    if cfg.family == "vlm" and embeds is not None:
+        dt = cfg.torch_dtype
+        fe = embeds.to(dt) @ params["frontend_proj"].to(dt)
+        x = torch.cat([fe, x], dim=1)
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, -1)
+
+    groups = _stack_groups(cfg)
+    enc_out = None
+    gidx = 0
+    if cfg.family == "audio":
+        gidx = 1
+        if enc_frames is not None:
+            enc_out = _encoder_out(cfg, params, enc_frames)
+        # else: decoding — cross K/V come from the cache
+
+    aux = 0.0
+    new_caches = [None] * len(groups)
+    for gi in range(gidx, len(groups)):
+        kinds, count = groups[gi]
+        cache_g = None if caches is None else caches["groups"][gi]
+        x, nc, a = _apply_group(cfg, kinds, count, params["groups"][gi],
+                                x, positions, caches=cache_g,
+                                enc_out=enc_out)
+        aux = aux + a
+        new_caches[gi] = nc
+
+    out_caches = None
+    if caches is not None:
+        out_caches = dict(caches)
+        out_caches["groups"] = new_caches
+        if gidx == 1:
+            out_caches["groups"][0] = caches["groups"][0]
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    return x, out_caches, aux
+
+
+def forward(cfg: ModelConfig, params: Params, tokens, *,
+            embeds=None, enc_frames=None, caches=None, positions=None):
+    """Returns (logits f32, new_caches, aux)."""
+    x, caches, aux = _trunk(cfg, params, tokens, embeds=embeds,
+                            enc_frames=enc_frames, caches=caches,
+                            positions=positions)
+    return _head(cfg, params, x), caches, aux
+
+
+# ---------------------------------------------------------------------------
+# training loss (the value; gradients wait for the training slice)
+# ---------------------------------------------------------------------------
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> Tuple[torch.Tensor,
+                                                               Dict]:
+    """batch: dict(tokens=(B,S), labels=(B,S) [, embeds / enc_frames])."""
+    logits, _, aux = forward(
+        cfg, params, batch["tokens"],
+        embeds=batch.get("embeds"), enc_frames=batch.get("enc_frames"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:  # vlm: loss on text tail only
+        logits = logits[:, -labels.shape[1]:]
+    lse = torch.logsumexp(logits, dim=-1)
+    # a negative label is masked below; clamp it only to gather something
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (lse - gold) * mask
+    loss = nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    total = loss + 0.01 * aux
+    return total, {"ce": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving: caches, prefill, decode
+# ---------------------------------------------------------------------------
+
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 device):
+    dt = cfg.torch_dtype
+
+    def kv(length):
+        return torch.zeros((batch, length, cfg.n_kv_heads, cfg.d_head),
+                           dtype=dt, device=device)
+
+    if kind in ("attn", "xattn"):
+        c = {"attn": {"k": kv(max_len), "v": kv(max_len), "idx": 0}}
+        if kind == "xattn":
+            c["xk"] = kv(max_len)
+            c["xv"] = kv(max_len)
+        return c
+    if kind == "wattn":
+        w = min(cfg.window or max_len, max_len)
+        return {"attn": {"k": kv(w), "v": kv(w), "idx": 0}}
+    if kind == "ssm":
+        return {"ssm": init_ssm_state(cfg, batch, device)}
+    if kind == "rglru":
+        return {"rglru": init_rglru_state(cfg, batch, device)}
+    if kind == "enc":
+        return None
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """{"groups": [per group: None, or a list over its layers of a tuple
+    over its kinds], "pos": 0}."""
+    groups = []
+    for kinds, count in _stack_groups(cfg):
+        if all(kind == "enc" for kind in kinds):  # no cache
+            groups.append(None)
+            continue
+        groups.append([tuple(_layer_cache(cfg, kind, batch, max_len, device)
+                             for kind in kinds) for _ in range(count)])
+    return {"groups": groups, "pos": 0}
+
+
+def prefill(cfg: ModelConfig, params: Params, batch, cache):
+    """Returns (last_token_logits, cache).  The head runs on the last
+    position only: the reference computes every position's logits and
+    keeps the last, which at batch 8 x 1024 over qwen's vocabulary is 5 GB
+    of f32."""
+    tokens = batch["tokens"]
+    if cfg.family == "audio":
+        # encode once, cache cross-attention K/V, then prefill the decoder
+        enc_out = _encoder_out(cfg, params, batch["enc_frames"])
+        dec_group = 1
+        _, count = _stack_groups(cfg)[dec_group]
+        cross = params["groups"][dec_group][0]["cross"]
+        layers = cache["groups"][dec_group]
+        for i in range(count):
+            xk, xv = cross_kv(cfg, tree_map(lambda a: a[i], cross), enc_out)
+            layers[i] = (dict(layers[i][0], xk=xk, xv=xv),)
+        # cross K/V are now cached; skip re-encoding inside forward
+        x, cache, _ = _trunk(cfg, params, tokens, caches=cache)
+    else:
+        x, cache, _ = _trunk(cfg, params, tokens,
+                             embeds=batch.get("embeds"), caches=cache)
+    s_total = tokens.shape[1]
+    if cfg.family == "vlm" and batch.get("embeds") is not None:
+        s_total += batch["embeds"].shape[1]
+    cache["pos"] = cache["pos"] + s_total
+    return _head(cfg, params, x[:, -1:])[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, tok, cache):
+    """tok: (B, 1) int.  Returns (logits (B, vocab), cache)."""
+    pos = cache["pos"]
+    positions = torch.full(tok.shape, pos, device=tok.device)
+    logits, cache, _ = forward(cfg, params, tok, caches=cache,
+                               positions=positions)
+    cache["pos"] = pos + 1
+    return logits[:, -1], cache

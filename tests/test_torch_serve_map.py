@@ -351,13 +351,17 @@ def test_serve_cli_second_request_is_an_exact_hit(tmp_path, monkeypatch,
 
 def test_mapper_packages_import_without_torch_jax_or_repro():
     """Search workers import these modules: they must not load torch (nor
-    touch the parent's CUDA context), jax or the reference package."""
+    touch the parent's CUDA context), jax or the reference package.  The
+    model stack beside ``models.config`` computes with torch and is not
+    imported by the mapper."""
     pkgs = ("core", "dse", "obs", "netmap", "serve_map", "configs", "models")
+    with_torch = {"serve_map/measure.py"} | {
+        f"models/{m}.py" for m in ("layers", "ssm", "rglru", "lm", "weights")}
     mods = ["repro_torch"] + sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         .removesuffix(".__init__")
         for pkg in pkgs for p in (PORT / pkg).rglob("*.py")
-        if p.relative_to(PORT).as_posix() != "serve_map/measure.py")
+        if p.relative_to(PORT).as_posix() not in with_torch)
     code = ("import sys, importlib\n"
             "for m in ('torch', 'jax', 'repro'):\n"
             "    sys.modules[m] = None\n"
@@ -370,3 +374,4 @@ def test_mapper_packages_import_without_torch_jax_or_repro():
     assert res.returncode == 0, res.stderr
     assert "repro_torch.serve_map.service" in mods
     assert "repro_torch.netmap.__main__" in mods
+    assert "repro_torch.models.config" in mods

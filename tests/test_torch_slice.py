@@ -101,6 +101,11 @@ def test_port_imports_with_jax_and_repro_blocked():
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods]
+    assert {"repro_torch.distributed.sharding", "repro_torch.models.layers",
+            "repro_torch.models.ssm", "repro_torch.models.rglru",
+            "repro_torch.models.lm", "repro_torch.models.weights",
+            "repro_torch.serving.engine",
+            "repro_torch.launch.serve"} <= set(mods)
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
