@@ -44,15 +44,30 @@ Phases (each prints its own lines; any failure exits nonzero):
      memory, the map-service summary, the bounds of prefill and decode,
      and one more run under ``torch.profiler`` (the card's activities and
      busy time in prefill and per decode step);
-  6. one JSON line with each kernel's launches on the main path (phase 3),
+  6. the training path, qwen1.5-0.5b at full width (``repro_torch.models``
+     with the flash backward, ``optim``, ``training``, ``checkpoint``,
+     ``launch.train``; torch ops, no kernel of this repo): (a) the flash
+     attention's manual backward on the card against autograd through a
+     naive f32 attention, f32 and bf16; (b) one f32 AdamW step from seeded
+     weights on the card against the port's own CPU step (loss, grad norm,
+     updated parameters); (c) ``launch.train.main`` trains bf16 batch 8 x
+     1024 for 6 steps with async checkpoints every 3, one more step under
+     ``torch.profiler``, then a second ``main`` resumes to step 8; one JSON
+     line {"trained": {...}} carries step times, tokens/s, peak memory,
+     losses, checkpoint writes, the card's busy share and
+     ``trained_bounds``; (d) in a child process with deterministic
+     algorithms, 6 steps straight and 3 + checkpoint + restore + 3 give
+     bitwise equal parameters (2 layers at full width);
+  7. one JSON line with each kernel's launches on the main path (phase 3),
      error and times;
-  7. the last line: {"ok": true, "device": {...}}.
+  8. the last line: {"ok": true, "device": {...}}.
 
 Needs torch with CUDA, nvcc and one card; it fails without them.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -76,17 +91,23 @@ from repro_torch.kernels.matmul import (matmul_cuda,  # noqa: E402
                                         wgmma_instances)
 from repro_torch.kernels.ops import _pad_to, tcm_matmul  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, matmul_ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa
+from repro_torch.data.pipeline import DataConfig, SyntheticTokens  # noqa
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.measure import (_randn, main_path_rows,  # noqa: E402
                                  run_model, time_call)
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.layers import flash_attention  # noqa: E402
 from repro_torch.netmap.planner import model_shapes  # noqa: E402
 from repro_torch.serve_map import MappingService  # noqa: E402
 from repro_torch.serve_map.__main__ import main as serve_map_main  # noqa
 from repro_torch.serve_map.measure import (  # noqa: E402
     measure_flash_attention, run_tile_load, service_matmul_tiles,
     tile_request_shapes)
+from repro_torch.optim.adamw import (OptConfig, apply_updates,  # noqa
+                                     init_opt_state)
 from repro_torch.serving.engine import make_serve_steps  # noqa: E402
+from repro_torch.training.step import init, make_train_step  # noqa: E402
 
 # H100 SXM datasheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -118,6 +139,27 @@ SERVE = (8, 1024, 32)
 # product in another order (no TF32), so they agree to rounding; 1e-4
 # (absolute and relative) is the port's f32 tolerance against JAX
 LOGIT_TOL = 1e-4
+
+# the training path (phase 6): the flash backward at qwen's attention
+# (B, S, heads, Dh) with the model's 512/512 chunks; the reference's
+# gradient tolerance in f32 (tests/test_flash_attention.py), and in bf16
+# (p, dout and ds rounded to bf16 before each product) 3e-2 of the largest
+# |g|, the bf16 tolerance of the port's CPU tests
+FA_BWD = (2, 1024, 16, 64)
+FA_GRAD_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
+# one f32 AdamW step, card against CPU, at batch x tokens; lr 1e-3 from the
+# first step (warmup 1), so every parameter moves by up to ~1e-3.  Loss and
+# grad norm agree to f32 summation order; an updated parameter may differ
+# where its gradient is near Adam's eps (Adam divides by its own size)
+TRAIN_CHECK = (2, 32)
+TRAIN_CHECK_OPT = OptConfig(lr=1e-3, warmup=1)
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-4}
+# training as users run it: global batch, sequence, steps, checkpoint
+# interval, the step a second run resumes to
+TRAIN = (8, 1024, 6, 3, 8)
+# resume exactness: layers (full width), batch, sequence, steps before and
+# after the checkpoint
+RESUME = (2, 4, 256, 3)
 
 MM_SHAPES = [(128, 128, 128), (256, 128, 384), (512, 256, 128),
              (384, 384, 384)]
@@ -650,6 +692,259 @@ def phase_served_model() -> None:
     print(json.dumps({"served": rep}))
 
 
+def check_flash_backward() -> dict:
+    """(a): d(q, k, v) of sum(tanh(attention @ w)), the reference test's
+    function, through the port's flash attention and through autograd of
+    the naive f32 attention (``kernels.ref.attention_ref``), on the
+    card."""
+    B, S, H, Dh = FA_BWD
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = gen(60)
+        ins = [randn((B, S, H, Dh), dtype, g).requires_grad_()
+               for _ in range(3)]
+        w = randn((Dh,), torch.float32, g)
+        got, want = (torch.autograd.grad(
+            torch.tanh(fn(*ins).float() @ w).sum(), ins) for fn in (
+                lambda q, k, v: flash_attention(q, k, v, causal=True),
+                lambda q, k, v: attention_ref(q, k, v, causal=True)))
+        tol = FA_GRAD_TOL[dtype]
+        errs = []
+        for name, a, b in zip("qkv", got, want):
+            atol = tol if dtype == torch.float32 else tol * b.abs().max()
+            ok, err = close(a, b, float(atol), tol)
+            errs.append(err)
+            check(f"flash backward {dtype} d{name} {(B, S, H, Dh)} causal, "
+                  f"chunks 512/512, against autograd of naive f32",
+                  ok and bool(torch.isfinite(a).all()),
+                  f"max|err| {err:.3g} of max|g| {b.abs().max().item():.3g} "
+                  f"(tol {float(atol):.3g} + {tol}|g|)")
+        out[str(dtype)] = {"max_abs_err": errs}
+    return out
+
+
+def check_train_step_card_vs_cpu() -> dict:
+    """(b): one f32 AdamW step at full width from the same weights and
+    batch, on the card and on the CPU."""
+    B, S = TRAIN_CHECK
+    cfg = get_config("qwen1_5_0_5b").scaled(dtype="float32")
+    oc = TRAIN_CHECK_OPT
+    t0 = time.perf_counter()
+    cpu, cpu_opt = init(cfg, oc, "cpu")
+    card = lm.tree_map(lambda t: t.to("cuda", copy=True), cpu)
+    card_opt = init_opt_state(oc, card)
+    print(f"  f32 weights drawn and copied in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch = next(SyntheticTokens(DataConfig(global_batch=B, seq_len=S,
+                                            vocab=cfg.vocab, seed=1)))
+    step = make_train_step(cfg, oc)
+    res = {}
+    for name, params, opt in (("cpu", cpu, cpu_opt), ("card", card,
+                                                       card_opt)):
+        _, _, m = step(params, opt, batch)
+        res[name] = {k: v.item() for k, v in m.items()}
+    for key in ("loss", "grad_norm"):
+        a, b = res["card"][key], res["cpu"][key]
+        check(f"f32 train step {B}x{S}, {key}, card against CPU",
+              math.isfinite(a) and abs(a - b) <= TRAIN_TOL[key] * abs(b),
+              f"{a:.9g} vs {b:.9g} (rel tol {TRAIN_TOL[key]})")
+    dmax = max((a.detach().cpu() - b.detach()).abs().max().item()
+               for a, b in zip(lm.tree_leaves(card), lm.tree_leaves(cpu)))
+    check(f"f32 train step {B}x{S}, updated parameters, card against CPU",
+          dmax <= TRAIN_TOL["params"],
+          f"max|d param| {dmax:.3g} (tol {TRAIN_TOL['params']}; a step "
+          f"moves a parameter up to ~{oc.lr})")
+    res["max_abs_param_err"] = dmax
+    # the optimizer's share of a step: one update of every f32 parameter
+    # (the values do not change its work)
+    ones = lm.tree_map(torch.ones_like, card)
+    res["optimizer_ms"] = time_call(
+        lambda: apply_updates(oc, card, ones, card_opt),
+        torch.device("cuda")) * 1e3
+    print(f"  AdamW update of {len(lm.tree_leaves(card))} f32 leaves on the "
+          f"card: {res['optimizer_ms']:.3f} ms")
+    del cpu, cpu_opt, card, card_opt, ones
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_attention(cfg, B, S) -> dict:
+    """Attention's share of a bf16 train step: the flash forward and
+    forward + backward of one layer at the step's shapes (CUDA events), and
+    the step's total, each layer's forward run twice (remat re-runs it)
+    and its backward once."""
+    g = gen(61)
+    q, k, v = (randn((B, S, cfg.n_heads, cfg.d_head), torch.bfloat16, g)
+               .requires_grad_() for _ in range(3))
+    dout = randn((B, S, cfg.n_heads, cfg.d_head), torch.bfloat16, g)
+    dev = torch.device("cuda")
+    fwd = time_call(lambda: flash_attention(q, k, v, causal=True), dev)
+    fwd_bwd = time_call(lambda: torch.autograd.grad(
+        flash_attention(q, k, v, causal=True), (q, k, v), dout), dev)
+    out = {"fwd_ms": fwd * 1e3, "fwd_bwd_ms": fwd_bwd * 1e3,
+           "step_ms": cfg.n_layers * (fwd + fwd_bwd) * 1e3}
+    print(f"  flash attention {B}x{S}x{cfg.n_heads}x{cfg.d_head} bf16: "
+          f"forward {out['fwd_ms']:.3f} ms, forward + backward "
+          f"{out['fwd_bwd_ms']:.3f} ms a layer; {out['step_ms']:.3f} ms "
+          f"in a step of {cfg.n_layers} layers with remat")
+    return out
+
+
+def trained_bounds(cfg, B, S) -> dict:
+    """Least time of one bf16 train step at batch B x S tokens: the
+    matmuls of forward and backward (6 operations a parameter a token, the
+    head included, the embedding a gather), the causal attention's forward
+    and backward (3 x 4 Dh operations a (query, key) pair), against the
+    bytes the step must move: the f32 parameters and the optimizer's m and
+    v read once and written once, and the tokens.  Remat's recomputation is
+    work the algorithm does not need, so it is not counted."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    q, kv, ff = cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    layer = 2 * d * q + 2 * d * kv + 3 * d * ff + q + 2 * kv + 2 * d
+    matmul_params = L * (2 * d * q + 2 * d * kv + 3 * d * ff) + d * V
+    params = L * layer + 2 * d * V + d
+    flops = (6 * matmul_params * B * S
+             + L * 3 * 4 * cfg.n_heads * cfg.d_head * B * S * (S + 1) // 2)
+    nbytes = 2 * 3 * 4 * params + 2 * B * S * 4
+    bnd, by, _, _ = bound_s(nbytes, flops)
+    return {"step_ms": bnd * 1e3, "step_by": by, "tflop": flops / 1e12,
+            "gbytes": nbytes / 1e9, "tok_s": B * S / bnd,
+            "params": params, "static_bytes": 4 * 4 * params}
+
+
+def run_training(tmp: str) -> dict:
+    """(c): ``launch.train.main`` as a user runs it, then a resume."""
+    B, S, steps, every, resumed = TRAIN
+    args = ["--arch", "qwen1.5-0.5b", "--global-batch", str(B), "--seq-len",
+            str(S), "--ckpt-dir", os.path.join(tmp, "ckpt"),
+            "--ckpt-every", str(every), "--log-every", "1"]
+    paths = [os.path.join(tmp, f"run{i}.json") for i in (1, 2)]
+    losses = [train.main(args + ["--steps", str(steps), "--profile",
+                                 "--json", paths[0]]),
+              train.main(args + ["--steps", str(resumed), "--json",
+                                 paths[1]])]
+    runs = []
+    for path in paths:
+        with open(path) as f:
+            runs.append(json.load(f))
+    first, second = runs
+    cfg = get_config("qwen1_5_0_5b")
+    check(f"bf16 training {B}x{S}, {steps} steps then resumed to {resumed}",
+          first["steps"] == steps and second["start_step"] == steps
+          and second["steps"] == resumed - steps
+          and all(math.isfinite(x) for r in runs for x in r["loss"])
+          and first["device"] == torch.cuda.get_device_name(0)
+          and CheckpointManager(os.path.join(tmp, "ckpt")).all_steps()
+          == [every, steps, resumed],
+          f"loss {first['loss'][0]:.4f} -> {losses[0]:.4f} -> "
+          f"{losses[1]:.4f}, step {first['step_ms_median']:.1f} ms "
+          f"(median after the first), {first['tok_s']:.0f} tokens/s, peak "
+          f"{first['peak_bytes'] / 2**30:.3f} GiB")
+    prof = first["profile"]
+    busy = prof["device_ms"]
+    bounds = trained_bounds(cfg, B, S)
+    attention = time_attention(cfg, B, S)
+    share = None if busy is None else busy / first["step_ms_median"]
+    print(f"  profiled step: {prof['activities']} device activities, busy "
+          f"{busy} ms of {prof['wall_ms']:.3f} ms profiled, matrix products "
+          f"{prof['matmul_share']} of it; busy share of the unprofiled "
+          f"median step {share} (None: the profiler traced no device "
+          f"activity); bound {bounds['step_ms']:.3f} ms ({bounds['step_by']})")
+    return {"run": first, "resumed": second, "bounds": bounds,
+            "busy_share": share, "attention": attention}
+
+
+def resume_check() -> None:
+    """(d), in a child process started with CUBLAS_WORKSPACE_CONFIG set:
+    with deterministic algorithms, training 2N steps straight equals N,
+    checkpoint, restore, N more, bit for bit.  Prints one JSON line."""
+    import warnings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    L, B, S, n = RESUME
+    cfg = get_config("qwen1_5_0_5b").scaled(n_layers=L)
+    oc = OptConfig()
+    step = make_train_step(cfg, oc)
+
+    def data():
+        return SyntheticTokens(DataConfig(global_batch=B, seq_len=S,
+                                          vocab=cfg.vocab))
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        params, opt = init(cfg, oc, "cuda")
+        stream = data()
+        for _ in range(2 * n):
+            params, opt, _ = step(params, opt, next(stream))
+        want = [t.detach().cpu() for t in lm.tree_leaves(params)]
+        del params, opt
+        params, opt = init(cfg, oc, "cuda")
+        stream = data()
+        for _ in range(n):
+            params, opt, _ = step(params, opt, next(stream))
+        with tempfile.TemporaryDirectory(prefix="tcm-resume-") as tmp:
+            mgr = CheckpointManager(tmp)
+            mgr.save_async(n, {"params": params, "opt": opt},
+                           extra={"data": stream.state()})
+            mgr.wait()
+            state, extra = mgr.restore_to(n, {"params": params, "opt": opt},
+                                          "cuda")
+        params, opt = state["params"], state["opt"]
+        stream = data()
+        stream.restore(extra["data"])
+        for _ in range(n):
+            params, opt, _ = step(params, opt, next(stream))
+        got = [t.detach().cpu() for t in lm.tree_leaves(params)]
+    unequal = sum(not torch.equal(a, b) for a, b in zip(got, want))
+    dmax = max((a - b).abs().max().item() for a, b in zip(got, want))
+    print(json.dumps({"resume": {
+        "layers": L, "batch": B, "seq": S, "steps": [n, n],
+        "leaves": len(got), "unequal_leaves": unequal,
+        "max_abs_diff": dmax,
+        "nondeterministic_warnings": sorted({
+            str(w.message)[:200] for w in caught
+            if "deterministic" in str(w.message)})}}))
+
+
+def check_resume() -> dict:
+    """(d): runs ``resume_check`` in a child process, so that cuBLAS takes
+    its deterministic workspace before CUDA starts there."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--resume-check"], env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith('{"resume"')]
+    rep = json.loads(lines[-1])["resume"] if lines else None
+    L, B, S, n = RESUME
+    check(f"resume on the card, deterministic algorithms, {L} layers at "
+          f"full width, batch {B}x{S}: {2 * n} steps == {n} + checkpoint + "
+          f"restore + {n}", res.returncode == 0 and rep is not None
+          and rep["unequal_leaves"] == 0,
+          f"exit {res.returncode}; " + (
+              f"{rep['unequal_leaves']} of {rep['leaves']} leaves differ, "
+              f"max|diff| {rep['max_abs_diff']:.3g}; ops without a "
+              f"deterministic implementation: "
+              f"{rep['nondeterministic_warnings'] or 'none'}"
+              if rep else res.stderr[-2000:]))
+    return rep
+
+
+def phase_training() -> None:
+    print("== phase 6: training path, qwen1.5-0.5b at full width")
+    t0 = time.perf_counter()
+    fa = check_flash_backward()
+    step = check_train_step_card_vs_cpu()
+    with tempfile.TemporaryDirectory(prefix="tcm-train-") as tmp:
+        rep = run_training(tmp)
+    rep.update(flash_backward=fa, step_card_vs_cpu=step)
+    rep["resume_check"] = check_resume()
+    rep["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 6 took {rep['phase_s']:.1f} s")
+    print(json.dumps({"trained": rep}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -673,8 +968,12 @@ def main() -> int:
     if FAILURES:
         print(f"phase 5 failed: {FAILURES}", file=sys.stderr)
         return 1
+    phase_training()
+    if FAILURES:
+        print(f"phase 6 failed: {FAILURES}", file=sys.stderr)
+        return 1
 
-    print("== phase 6: kernels (times summed over the main path's unique "
+    print("== phase 7: kernels (times summed over the main path's unique "
           "shapes, each once)")
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:19"),
@@ -704,4 +1003,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--resume-check"]:
+        resume_check()
+        sys.exit(0)
     sys.exit(main())

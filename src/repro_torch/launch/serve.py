@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..measure import device_name, resolve_device
+from ..measure import device_name, device_time, resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
 from ..models.weights import cast_for_compute
@@ -151,40 +151,11 @@ def generate(cfg: ModelConfig, params, batch, gen: int
                        if dev.type == "cuda" else None)}
 
 
-def _device_time(fn) -> Dict:
-    """Runs ``fn`` under ``torch.profiler`` and returns the card's side of
-    it: device activities (kernels, copies, fills), their summed duration
-    (one stream: they do not overlap), the wall time of the profiled run
-    (the profiler's own cost included) and the five activities that took
-    longest, summed by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name: Dict[str, float] = {}
-    n = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-    busy = sum(by_name.values()) if n else None  # None: nothing traced
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"activities": n, "device_ms": busy, "wall_ms": wall * 1e3,
-            "busy_share": None if busy is None else busy / (wall * 1e3),
-            "top": [{"name": k[:80], "ms": v} for k, v in top]}
-
-
 def profile_run(cfg: ModelConfig, params, batch, gen: int) -> Dict:
     """One more greedy run, each phase under ``torch.profiler``: what the
     card did in prefill and in a decode step, and its busy share of their
     wall time."""
-    _, pre, dec = _greedy(cfg, params, batch, gen, _device_time)
+    _, pre, dec = _greedy(cfg, params, batch, gen, device_time)
     steps = max(gen - 1, 1)
     return {"prefill": pre, "decode": dec, "decode_per_step": {
         "activities": dec["activities"] / steps,

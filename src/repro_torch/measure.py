@@ -50,6 +50,44 @@ def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
+# substrings of the device kernels that compute matrix products (cuBLAS's
+# gemm / xmma / nvjet kernels, CUTLASS's)
+GEMM_NAMES = ("gemm", "xmma", "nvjet", "cutlass")
+
+
+def device_time(fn: Callable[[], object]) -> Dict:
+    """Runs ``fn`` under ``torch.profiler`` and returns the card's side of
+    it: device activities (kernels, copies, fills), their summed duration
+    (one stream: they do not overlap), the wall time of the profiled run
+    (the profiler's own cost included), the share of the busy time spent
+    in matrix products (cuBLAS and CUTLASS gemms, by name) and the ten
+    activities that took longest, summed by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: Dict[str, float] = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    busy = sum(by_name.values()) if n else None  # None: nothing traced
+    gemm = sum(ms for name, ms in by_name.items()
+               if any(w in name for w in GEMM_NAMES))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"activities": n, "device_ms": busy, "wall_ms": wall * 1e3,
+            "busy_share": None if busy is None else busy / (wall * 1e3),
+            "matmul_share": None if not busy else gemm / busy,
+            "top": [{"name": k[:80], "ms": v} for k, v in top]}
+
+
 def time_call(fn: Callable[[], object], dev: torch.device,
               repeats: int = 3, iters: int = 5) -> float:
     """Seconds per call of ``fn``: best of ``repeats`` runs of ``iters``

@@ -8,8 +8,8 @@ port differs:
 - parameter creators draw from a ``torch.Generator`` (``jax.random`` cannot
   be reproduced) and return the parameters only: the reference's sharding
   specs have no meaning on one device;
-- ``flash_attention`` is the forward pass; its manual backward
-  (reference ``:158-239``) waits for the training slice;
+- ``flash_attention``'s ``custom_vjp`` is a ``torch.autograd.Function``
+  (``_Flash``) with the same manual backward (reference ``:158-239``);
 - a KV cache holds its fill index ``idx`` as a host int, not a 0-d device
   array (a device index would force a host sync in every layer), and is
   written in place, clamped as ``lax.dynamic_update_slice`` clamps.
@@ -112,40 +112,20 @@ def _chunk_masked(causal: bool, window: int, q_lo: int, q_hi: int,
             or (window > 0 and k_hi <= q_lo - window))
 
 
-def flash_attention(q, k, v, *, causal: bool, window: int = 0,
-                    q_offset: int = 0, q_chunk: int = 512,
-                    kv_chunk: int = 512, kv_valid: Optional[int] = None):
-    """Streaming softmax attention, chunked over q and kv (forward only).
-
-    q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh).  GQA: Hq % Hkv == 0.
-    ``q_offset`` is the absolute position of q[0] relative to k[0] (decode
-    with a cache passes the fill index); keys at or past ``kv_valid``
-    (default Sk) are masked.  Scores and the running (m, l, acc) are f32,
-    p is cast to q's dtype before P.V; masked scores are -1e30, m starts
-    at -inf, l is floored at 1e-30.  Returns (B, Sq, Hq, Dh).
-    """
-    B, Sq, Hq, Dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    rep = Hq // Hkv
-    kv_chunk = min(kv_chunk, Sk)
-    q_chunk = min(q_chunk, Sq)
-    nk = -(-Sk // kv_chunk)
-    nq = -(-Sq // q_chunk)
-    pad_k, pad_q = nk * kv_chunk - Sk, nq * q_chunk - Sq
-    if pad_k:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
-    if pad_q:
-        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
-    qg = q.reshape(B, nq * q_chunk, Hkv, rep, Dh)
-    kv_valid = Sk if kv_valid is None else int(kv_valid)
+def _flash_fwd(q, k, v, cfgt):
+    """The forward over padded, grouped ``q`` (B, Sqp, Hkv, rep, Dh) and
+    ``k``/``v`` (B, Skp, Hkv, Dh): (out like ``q``, lse (B, Hkv, rep, Sqp)
+    f32), the reference's ``_flash_fwd_impl``."""
+    causal, window, q_chunk, kv_chunk, q_offset, kv_valid = cfgt
+    B, Sqp, Hkv, rep, Dh = q.shape
+    nq, nk = Sqp // q_chunk, k.shape[1] // kv_chunk
     scale = weak_scalar(1.0 / math.sqrt(Dh), q.dtype)
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         q_lo = q_offset + qi * q_chunk
         q_pos = q_lo + torch.arange(q_chunk, device=dev)
-        qb = (qg[:, qi * q_chunk:(qi + 1) * q_chunk] * scale).float()
+        qb = (q[:, qi * q_chunk:(qi + 1) * q_chunk] * scale).float()
         m = torch.full((B, Hkv, rep, q_chunk), -math.inf, device=dev)
         l = torch.zeros((B, Hkv, rep, q_chunk), device=dev)
         acc = torch.zeros((B, Hkv, rep, q_chunk, Dh), device=dev)
@@ -169,7 +149,113 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
             m = m_new
         l = torch.clamp_min(l, 1e-30)
         outs.append((acc / l[..., None]).permute(0, 3, 1, 2, 4).to(q.dtype))
-    out = torch.cat(outs, dim=1)  # (B, nq*qc, Hkv, rep, Dh)
+        lses.append(m + torch.log(l))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, cfgt):
+    """The reference's manual flash backward (``_flash_bwd_impl``): each
+    block's p is recomputed from the saved logsumexp, so nothing is kept
+    per kv step; ``delta = rowsum(dout * out)``, ``ds = p (dp - delta)``.
+    p, dout and ds are rounded to q's dtype before each product, the
+    products are summed in f32, and dq/dk/dv accumulate in f32.  The blocks
+    the forward skips are skipped here too: their p is exactly 0."""
+    causal, window, q_chunk, kv_chunk, q_offset, kv_valid = cfgt
+    B, Sqp, Hkv, rep, Dh = q.shape
+    nq, nk = Sqp // q_chunk, k.shape[1] // kv_chunk
+    dt = q.dtype
+    q_scale = weak_scalar(1.0 / math.sqrt(Dh), dt)
+    scale = weak_scalar(1.0 / math.sqrt(Dh), torch.float32)
+    dev = q.device
+    delta = torch.einsum("bsgrd,bsgrd->bgrs", dout.float(), out.float())
+    dk = torch.zeros(k.shape, device=dev)
+    dv = torch.zeros(v.shape, device=dev)
+    dqs = []
+    for qi in range(nq):
+        rows = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        q_lo = q_offset + qi * q_chunk
+        q_pos = q_lo + torch.arange(q_chunk, device=dev)
+        qblk = q[:, rows]
+        qb = (qblk * q_scale).float()
+        qf = qblk.float()
+        dob = dout[:, rows].to(dt).float()
+        lse_b, delta_b = lse[..., rows, None], delta[..., rows, None]
+        dq = torch.zeros(qblk.shape, device=dev)
+        for ci in range(nk):
+            k_lo = ci * kv_chunk
+            if _chunk_masked(causal, window, q_lo, q_lo + q_chunk - 1, k_lo,
+                             k_lo + kv_chunk - 1, kv_valid):
+                continue
+            cols = slice(k_lo, k_lo + kv_chunk)
+            kblk, vblk = k[:, cols].float(), v[:, cols].float()
+            k_pos = k_lo + torch.arange(kv_chunk, device=dev)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qb, kblk)
+            mask = _mask_for(causal, window, q_pos, k_pos, kv_valid)
+            p = torch.where(mask, torch.exp(s - lse_b), 0.0)
+            dv[:, cols] += torch.einsum("bgrqk,bqgrd->bkgd",
+                                        p.to(dt).float(), dob)
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", dob, vblk)
+            dsb = (p * (dp - delta_b)).to(dt).float()
+            dq += torch.einsum("bgrqk,bkgd->bqgrd", dsb, kblk) * scale
+            dk[:, cols] += torch.einsum("bgrqk,bqgrd->bkgd", dsb, qf) * scale
+        dqs.append(dq)
+    return (torch.cat(dqs, dim=1).to(dt), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The chunked attention with the manual backward, the reference's
+    ``custom_vjp``.  ``cfgt`` (masking, chunks, ``q_offset``,
+    ``kv_valid``) gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfgt):
+        out, lse = _flash_fwd(q, k, v, cfgt)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfgt = cfgt
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_bwd(q, k, v, out, lse, dout, ctx.cfgt), None)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset: int = 0, q_chunk: int = 512,
+                    kv_chunk: int = 512, kv_valid: Optional[int] = None):
+    """Streaming softmax attention, chunked over q and kv, with the
+    reference's manual flash backward (``_Flash``).
+
+    q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh).  GQA: Hq % Hkv == 0.
+    ``q_offset`` is the absolute position of q[0] relative to k[0] (decode
+    with a cache passes the fill index); keys at or past ``kv_valid``
+    (default Sk) are masked.  Scores and the running (m, l, acc) are f32,
+    p is cast to q's dtype before P.V; masked scores are -1e30, m starts
+    at -inf, l is floored at 1e-30.  Where no gradient is wanted (serving
+    runs under ``no_grad``) the forward runs alone and keeps nothing for
+    a backward.  Returns (B, Sq, Hq, Dh).
+    """
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    kv_chunk = min(kv_chunk, Sk)
+    q_chunk = min(q_chunk, Sq)
+    nk = -(-Sk // kv_chunk)
+    nq = -(-Sq // q_chunk)
+    pad_k, pad_q = nk * kv_chunk - Sk, nq * q_chunk - Sq
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    qg = q.reshape(B, nq * q_chunk, Hkv, rep, Dh)
+    cfgt = (bool(causal), int(window), q_chunk, kv_chunk, int(q_offset),
+            Sk if kv_valid is None else int(kv_valid))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = _Flash.apply(qg, k, v, cfgt)
+    else:
+        out = _flash_fwd(qg, k, v, cfgt)[0]
     return out.reshape(B, nq * q_chunk, Hq, Dh)[:, :Sq]
 
 

@@ -4,7 +4,7 @@ Port of ``repro.models.lm``:
 
   init(cfg, generator, device)         -> params
   forward(cfg, params, tokens, ...)    -> (logits, caches, aux)
-  loss_fn(cfg, params, batch)          -> (loss, parts)   (value only)
+  loss_fn(cfg, params, batch)          -> (loss, parts)   (differentiable)
   init_cache(cfg, batch, max_len, device) -> cache
   prefill(cfg, params, batch, cache)   -> (last_logits, cache)
   decode_step(cfg, params, tok, cache) -> (logits, cache)
@@ -30,9 +30,10 @@ Families:
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..distributed.sharding import constrain
 from .config import ModelConfig
@@ -54,6 +55,45 @@ def tree_map(fn: Callable, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return None if tree is None else fn(tree)
+
+
+def tree_zip(tree, *others) -> Iterator[tuple]:
+    """(leaf, *the nodes of ``others`` at its place) for every leaf of
+    ``tree`` in ``jax.tree.leaves``' order: dict keys sorted, lists and
+    tuples in order, None skipped.  ``others`` share ``tree``'s structure
+    down to its leaves and may hold a subtree where it holds a leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_zip(tree[k], *(o[k] for o in others))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from tree_zip(t, *(o[i] for o in others))
+    elif tree is not None:
+        yield (tree, *others)
+
+
+def tree_leaves(tree) -> List:
+    """The leaves of ``tree`` in ``jax.tree.leaves``' order."""
+    return [leaf for leaf, in tree_zip(tree)]
+
+
+def tree_unflatten(like, leaves: List):
+    """``like``'s structure holding ``leaves``, given in ``tree_leaves``'
+    order (``jax.tree.unflatten``).  Raises ValueError unless the counts
+    agree."""
+    leaves, n = list(leaves), len(tree_leaves(like))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a tree of {n}")
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return None if t is None else next(it)
+
+    return build(like)
 
 
 def _stack(trees: List[Params]) -> Params:
@@ -206,12 +246,14 @@ def init(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
 def _apply_group(cfg, kinds, count, group_params, x, positions,
                  caches=None, enc_out=None):
     """The group's ``count`` layers in order; ``caches`` is the group's
-    list of per-layer caches.  Returns (x, new_caches, aux)."""
-    aux = 0.0
-    new_caches = None if caches is None else []
-    for i in range(count):
-        layer_params = tree_map(lambda a: a[i], group_params)
-        layer_cache = None if caches is None else caches[i]
+    list of per-layer caches.  Returns (x, new_caches, aux).
+
+    With ``cfg.remat`` and gradients wanted, each layer's body runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, the reference's ``jax.checkpoint(...,
+    nothing_saveable)`` around the scan body."""
+
+    def body(x, aux, layer_params, layer_cache):
         ncs = []
         for ki, kind in enumerate(kinds):
             c = None if layer_cache is None else layer_cache[ki]
@@ -219,8 +261,21 @@ def _apply_group(cfg, kinds, count, group_params, x, positions,
                                     positions, cache=c, enc_out=enc_out)
             ncs.append(nc)
             aux = aux + a
+        return x, aux, tuple(ncs)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
+    new_caches = None if caches is None else []
+    for i in range(count):
+        layer_params = tree_map(lambda a: a[i], group_params)
+        layer_cache = None if caches is None else caches[i]
+        if remat:
+            x, aux, ncs = checkpoint(body, x, aux, layer_params, layer_cache,
+                                     use_reentrant=False)
+        else:
+            x, aux, ncs = body(x, aux, layer_params, layer_cache)
         if caches is not None:
-            new_caches.append(tuple(ncs))
+            new_caches.append(ncs)
     return x, new_caches, aux
 
 
@@ -304,7 +359,8 @@ def forward(cfg: ModelConfig, params: Params, tokens, *,
 
 
 # ---------------------------------------------------------------------------
-# training loss (the value; gradients wait for the training slice)
+# training loss (differentiable: autograd, with the attention's manual
+# backward and, under ``cfg.remat``, per-layer recomputation)
 # ---------------------------------------------------------------------------
 
 def loss_fn(cfg: ModelConfig, params: Params, batch) -> Tuple[torch.Tensor,

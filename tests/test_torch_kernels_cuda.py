@@ -1,7 +1,9 @@
-"""The CUDA kernels against their plain versions, on the card only.
+"""The CUDA kernels against their plain versions, on the card only, and
+the training path on the card against the CPU.
 
 Duplicates of ``chip_smoke.py`` phase 2 at the reference tests' shapes and
-tolerances.  Like the port, this file imports no JAX.  On the GPU machine:
+tolerances, and of phase 6 (a)-(b) at smoke size.  Like the port, this
+file imports no JAX.  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -13,7 +15,13 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.matmul import (matmul_cuda, matmul_plain,
                                         wgmma_instance, wgmma_instances)
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.kernels.ref import attention_ref, matmul_ref
+from repro_torch.models import lm
+from repro_torch.models.layers import flash_attention
+from repro_torch.optim.adamw import OptConfig, init_opt_state
+from repro_torch.training.step import init, make_train_step
 
 MM_SHAPES = [(128, 128, 128), (256, 128, 384), (512, 256, 128),
              (384, 384, 384)]
@@ -142,3 +150,44 @@ def test_bf16_attention_paths_on_card(shape, tiles, cuda_device):
     _held_bf16(flash_attention_cuda(q, k, v, causal=causal, bq=bq, bk=bk),
                flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk),
                attention_ref(q, k, v, causal=causal), FA_TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 24])
+def test_flash_backward_on_card_matches_cpu(window, cuda_device):
+    """The flash attention's manual backward, f32, on the card against the
+    CPU at the reference's gradient tolerance (5e-4)."""
+    rng = np.random.default_rng(4)
+    x = [rng.normal(size=s).astype(np.float32) for s in
+         ((2, 64, 4, 16), (2, 64, 2, 16), (2, 64, 2, 16), (16,))]
+    grads = []
+    for dev in ("cpu", cuda_device):
+        ins = [torch.from_numpy(a).to(dev).requires_grad_() for a in x[:3]]
+        o = flash_attention(*ins, causal=True, window=window, q_chunk=16,
+                            kv_chunk=16)
+        torch.tanh(o @ torch.from_numpy(x[3]).to(dev)).sum().backward()
+        grads.append([_np(t.grad) for t in ins])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(b, a, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One f32 AdamW step of smoke qwen on the card against the CPU: loss
+    and grad norm to f32 summation order (1e-5), parameters within 1e-4
+    (an element whose gradient is near Adam's eps differs most)."""
+    cfg = get_config("qwen1.5-0.5b", smoke=True).scaled(dtype="float32")
+    oc = OptConfig(lr=1e-3, warmup=1)
+    cpu, cpu_opt = init(cfg, oc, "cpu")
+    card = lm.tree_map(lambda t: t.to(cuda_device, copy=True), cpu)
+    card_opt = init_opt_state(oc, card)
+    batch = next(SyntheticTokens(DataConfig(global_batch=2, seq_len=32,
+                                            vocab=cfg.vocab)))
+    step = make_train_step(cfg, oc)
+    _, _, m_cpu = step(cpu, cpu_opt, batch)
+    _, _, m_card = step(card, card_opt, batch)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(m_card[key].item(), m_cpu[key].item(),
+                                   rtol=1e-5)
+    for a, b in zip(lm.tree_leaves(card), lm.tree_leaves(cpu)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=1e-4)

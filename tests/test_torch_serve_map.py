@@ -353,8 +353,9 @@ def test_mapper_packages_import_without_torch_jax_or_repro():
     """Search workers import these modules: they must not load torch (nor
     touch the parent's CUDA context), jax or the reference package.  The
     model stack beside ``models.config`` computes with torch and is not
-    imported by the mapper."""
-    pkgs = ("core", "dse", "obs", "netmap", "serve_map", "configs", "models")
+    imported by the mapper.  The data pipeline is numpy only as well."""
+    pkgs = ("core", "dse", "obs", "netmap", "serve_map", "configs", "models",
+            "data")
     with_torch = {"serve_map/measure.py"} | {
         f"models/{m}.py" for m in ("layers", "ssm", "rglru", "lm", "weights")}
     mods = ["repro_torch"] + sorted(
@@ -375,3 +376,4 @@ def test_mapper_packages_import_without_torch_jax_or_repro():
     assert "repro_torch.serve_map.service" in mods
     assert "repro_torch.netmap.__main__" in mods
     assert "repro_torch.models.config" in mods
+    assert "repro_torch.data.pipeline" in mods

@@ -105,7 +105,10 @@ def test_port_imports_with_jax_and_repro_blocked():
             "repro_torch.models.ssm", "repro_torch.models.rglru",
             "repro_torch.models.lm", "repro_torch.models.weights",
             "repro_torch.serving.engine",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.data.pipeline",
+            "repro_torch.optim.adamw", "repro_torch.training.step",
+            "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
