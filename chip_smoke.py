@@ -58,9 +58,24 @@ Phases (each prints its own lines; any failure exits nonzero):
      ``trained_bounds``; (d) in a child process with deterministic
      algorithms, 6 steps straight and 3 + checkpoint + restore + 3 give
      bitwise equal parameters (2 layers at full width);
-  7. one JSON line with each kernel's launches on the main path (phase 3),
+  7. the mapper's evidence (``repro_torch.gap``, ``dse``, ``core.baselines``;
+     numpy on the host, then the matmul kernel): (a) the CLIs in process in
+     a temp cwd: ``gap --mode soundness --cases 30 --seed 0`` must find no
+     violation, ``gap --fast`` must give every curve cell >= 1.000x, ``dse
+     --fast`` must reach its frontier; (b) the gap harness on the card's own
+     plan arch (``plan_arch()``, objective latency, budgets 100 and 1000)
+     over qwen1.5-0.5b's 12 unique main-path matmul shapes: no baseline may
+     beat TCM's modeled latency; (c) at each of those shapes, each
+     baseline's best mapping at 1000 evaluations (seed 0) becomes a kernel
+     tile (``plan_from_mapping``), and the bf16 matmul runs at every
+     searcher's tile and TCM's, each output held against the plain version
+     and timed; one JSON line {"gap": [...]} with, per shape, each
+     searcher's modeled latency, tile and kernel ms, the bound and TCM's
+     rank by kernel time (a baseline's tile faster than TCM's is a finding,
+     not a failure);
+  8. one JSON line with each kernel's launches on the main path (phase 3),
      error and times;
-  8. the last line: {"ok": true, "device": {...}}.
+  9. the last line: {"ok": true, "device": {...}}.
 
 Needs torch with CUDA, nvcc and one card; it fails without them.
 """
@@ -73,6 +88,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -81,7 +97,8 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.autotile import (kernel_takes,  # noqa: E402
-                                       tcm_matmul_plan)
+                                       plan_arch, plan_einsum,
+                                       plan_from_mapping, tcm_matmul_plan)
 from repro_torch.core.search import clear_search_caches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -93,6 +110,9 @@ from repro_torch.kernels.ops import _pad_to, tcm_matmul  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, matmul_ref  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens  # noqa
+from repro_torch.dse.__main__ import main as dse_main  # noqa: E402
+from repro_torch.gap.__main__ import main as gap_main  # noqa: E402
+from repro_torch.gap.runner import BASELINES, REL_EPS, run_gap  # noqa
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.measure import (_randn, main_path_rows,  # noqa: E402
                                  run_model, time_call)
@@ -160,6 +180,14 @@ TRAIN = (8, 1024, 6, 3, 8)
 # resume exactness: layers (full width), batch, sequence, steps before and
 # after the checkpoint
 RESUME = (2, 4, 256, 3)
+
+# the mapper's evidence (phase 7): the gap harness's budgets on the card's
+# plan arch, and the budget and seed of each baseline whose best tile the
+# kernel runs
+GAP_BUDGETS = [100, 1000]
+GAP_KERNEL_BUDGET = 1000
+GAP_SEED = 0
+GAP_ARCH = "h100-wgmma"
 
 MM_SHAPES = [(128, 128, 128), (256, 128, 384), (512, 256, 128),
              (384, 384, 384)]
@@ -419,6 +447,19 @@ def phase_main_path() -> dict:
     return {"launches": launches, "totals": tot}
 
 
+def held_at_tile(a, b, tile, out) -> tuple:
+    """``tcm_matmul``'s output at ``tile`` against the plain version on the
+    same padded operands: (ok, max|err|, tolerance)."""
+    (M, K), N = a.shape, b.shape[1]
+    bm, bk, bn = tile
+    ap = _pad_to(_pad_to(a, bm, 0), bk, 1)
+    bp = _pad_to(_pad_to(b, bk, 0), bn, 1)
+    ok, err, tol = close_to_plain(
+        out, matmul_plain(ap, bp, bm=bm, bk=bk, bn=bn)[:M, :N], None)
+    return (tuple(out.shape) == (M, N) and bool(torch.isfinite(out).all())
+            and ok), err, tol
+
+
 def phase_service() -> None:
     print("== phase 4: service route, qwen1.5-0.5b at full width, bf16")
     cfg = get_config("qwen1_5_0_5b")
@@ -480,18 +521,13 @@ def phase_service() -> None:
         check("every kernel launched on the service route",
               min(launches.values()) > 0, f"{launches}")
 
-    for row, (a, b, (bm, bk, bn), out) in zip(rows, driven):
+    for row, (a, b, tile, out) in zip(rows, driven):
         (M, K), N = a.shape, b.shape[1]
-        ap = _pad_to(_pad_to(a, bm, 0), bk, 1)
-        bp = _pad_to(_pad_to(b, bk, 0), bn, 1)
-        ok, err, tol = close_to_plain(
-            out, matmul_plain(ap, bp, bm=bm, bk=bk, bn=bn)[:M, :N], None)
+        ok, err, tol = held_at_tile(a, b, tile, out)
         row["kernel_ms"] = time_call(
-            lambda: tcm_matmul(a, b, tiles=(bm, bk, bn)), dev) * 1e3
+            lambda: tcm_matmul(a, b, tiles=tile), dev) * 1e3
         row["max_abs_err"] = err
-        check(f"kernel at served tile {M}x{K}x{N} {(bm, bk, bn)}",
-              tuple(out.shape) == (M, N)
-              and bool(torch.isfinite(out).all()) and ok,
+        check(f"kernel at served tile {M}x{K}x{N} {tile}", ok,
               f"max|err| {err:.3g} (tol {tol}), {row['kernel_ms']:.4f} ms")
     g = torch.Generator(device=dev).manual_seed(41)
     q, k, v = (_randn((B, Sq, H, Dh), torch.bfloat16, dev, g)
@@ -571,15 +607,10 @@ def phase_service_load(cfg, dev) -> tuple:
         a, b = randn((M, K), torch.bfloat16, g), randn((K, N),
                                                       torch.bfloat16, g)
         out = tcm_matmul(a, b, tiles=(bm, bk, bn))
-        ap = _pad_to(_pad_to(a, bm, 0), bk, 1)
-        bp = _pad_to(_pad_to(b, bk, 0), bn, 1)
-        ok, err, tol = close_to_plain(
-            out, matmul_plain(ap, bp, bm=bm, bk=bk, bn=bn)[:M, :N], None)
+        ok, err, tol = held_at_tile(a, b, (bm, bk, bn), out)
         ms = time_call(lambda: tcm_matmul(a, b, tiles=(bm, bk, bn)),
                        dev) * 1e3
-        check(f"kernel at load-served tile {M}x{K}x{N} {(bm, bk, bn)}",
-              tuple(out.shape) == (M, N)
-              and bool(torch.isfinite(out).all()) and ok,
+        check(f"kernel at load-served tile {M}x{K}x{N} {(bm, bk, bn)}", ok,
               f"max|err| {err:.3g} (tol {tol}), {ms:.4f} ms")
         kernels.append({"shape": [M, K, N], "tile": [bm, bk, bn],
                         "kernel_ms": ms, "max_abs_err": err})
@@ -945,6 +976,153 @@ def phase_training() -> None:
     print(json.dumps({"trained": rep}))
 
 
+def run_gap_cli(argv) -> int:
+    """``python -m repro_torch.gap`` in this process (it reads
+    ``sys.argv``)."""
+    saved = sys.argv
+    sys.argv = ["repro_torch.gap"] + argv
+    try:
+        return gap_main()
+    finally:
+        sys.argv = saved
+
+
+def evidence_clis() -> None:
+    """(a): the gap and dse CLIs' own gates, in a temp cwd (they write
+    ``.tcm_cache`` and any violation repro there)."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="tcm-evidence-") as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            rc = run_gap_cli(["--mode", "soundness", "--cases", "30",
+                              "--seed", "0", "--json", "sound.json"])
+            with open("sound.json") as f:
+                sound = json.load(f)
+            check("gap --mode soundness --cases 30 --seed 0",
+                  rc == 0 and sound["ok"] and sound["n_cases"] == 30
+                  and not sound["violations"],
+                  f"exit {rc}, {sound['n_cases']} cases "
+                  f"({sound['n_oracle_checked']} oracle-checked, "
+                  f"{sound['n_baseline_runs']} baseline runs), "
+                  f"{len(sound['violations'])} violations in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            rc = run_gap_cli(["--fast", "--json", "gap.json"])
+            with open("gap.json") as f:
+                fast = json.load(f)
+            cells = [p["gap"] for c in fast["curves"] for p in c["points"]]
+            check("gap --fast: every curve cell >= 1.000x",
+                  rc == 0 and not fast["violations"]
+                  and min(cells) >= 1 - REL_EPS,
+                  f"exit {rc}, {len(cells)} cells, least {min(cells):.4f}x, "
+                  f"{len(fast['violations'])} violations in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            rc = dse_main(["--fast", "--json", "dse.json"])
+            with open("dse.json") as f:
+                dse = json.load(f)
+            check("dse --fast reaches its frontier",
+                  rc == 0 and bool(dse["frontier"])
+                  and not dse["resilience"]["interrupted"],
+                  f"exit {rc}, {len(dse['frontier'])} frontier points of "
+                  f"{dse['explorer_counters']['n_points']}, best "
+                  f"{dse['best']} in {time.perf_counter() - t0:.1f} s")
+        finally:
+            os.chdir(cwd)
+
+
+def phase_evidence(cfg) -> None:
+    print("== phase 7: the mapper's evidence (soundness, gap, dse; the "
+          "kernel at each searcher's tile)")
+    t0 = time.perf_counter()
+    evidence_clis()
+
+    shapes = list(dict.fromkeys(
+        shp for mode, batch, seq in RUNS
+        for shp in model_shapes(cfg, mode, batch, seq).values()))
+    arch = plan_arch()
+    names = {shp: "x".join(map(str, shp)) for shp in shapes}
+    t1 = time.perf_counter()
+    report = run_gap({names[s]: plan_einsum(*s) for s in shapes},
+                     {GAP_ARCH: arch}, budgets=GAP_BUDGETS,
+                     objectives=("latency",))
+    print(f"  gap on {GAP_ARCH}: {len(shapes)} shapes x {len(BASELINES)} "
+          f"baselines x budgets {GAP_BUDGETS} in "
+          f"{time.perf_counter() - t1:.1f} s")
+    for shp in shapes:
+        w = names[shp]
+        curves = {c.baseline: [p.gap for p in c.points]
+                  for c in report.curves if c.workload == w}
+        beaten = [v.baseline for v in report.violations if v.workload == w]
+        opt = report.optima[(w, GAP_ARCH, "latency")]
+        check(f"gap {w}: no baseline beats TCM's modeled latency",
+              not beaten and opt < float("inf"),
+              f"TCM {opt * 1e3:.5g} ms modeled; gap at {GAP_BUDGETS}: "
+              + ", ".join(f"{b} " + "/".join(f"{g:.3f}x" for g in gs)
+                          for b, gs in curves.items())
+              + (f"; beaten by {beaten}" if beaten else ""))
+
+    dev = torch.device("cuda")
+    g = gen(70)
+    matmul_cuda.launches = 0
+    rows = []
+    for shp in shapes:
+        M, K, N = shp
+        ein = plan_einsum(M, K, N)
+        plan = tcm_matmul_plan(M, K, N)
+        searchers = {"tcm": {
+            "modeled_s": report.optima[(names[shp], GAP_ARCH, "latency")],
+            "tile": plan.tiles}}
+        for name, fn in BASELINES.items():
+            r = fn(ein, arch, GAP_KERNEL_BUDGET, GAP_SEED, "latency")
+            searchers[name] = {
+                "modeled_s": None if r.best is None else r.best.latency,
+                # plan_from_mapping reads a result's mapping and latency
+                "tile": None if r.best is None else plan_from_mapping(
+                    SimpleNamespace(mapping=r.best_mapping,
+                                    latency=r.best.latency), ein,
+                    M, K, N).tiles,
+                "n_valid": r.n_valid}
+        a = randn((M, K), torch.bfloat16, g)
+        b = randn((K, N), torch.bfloat16, g)
+        timed = {}
+        for tile in dict.fromkeys(s["tile"] for s in searchers.values()
+                                  if s["tile"] is not None):
+            out = tcm_matmul(a, b, tiles=tile)
+            ok, err, tol = held_at_tile(a, b, tile, out)
+            ms = time_call(lambda: tcm_matmul(a, b, tiles=tile), dev) * 1e3
+            by = [n for n, s in searchers.items() if s["tile"] == tile]
+            check(f"kernel {M}x{K}x{N} at tile {tile} ({', '.join(by)})",
+                  ok, f"max|err| {err:.3g} (tol {tol}), {ms:.4f} ms")
+            timed[tile] = (ms, err)
+        for s in searchers.values():
+            s["ms"], s["max_abs_err"] = timed.get(s["tile"], (None, None))
+            s["tile"] = None if s["tile"] is None else list(s["tile"])
+        bnd, by, _, _ = bound_s(2 * (M * K + K * N + M * N), 2 * M * K * N)
+        tcm_ms = searchers["tcm"]["ms"]
+        rank = 1 + sum(s["ms"] is not None and s["ms"] < tcm_ms
+                       for n, s in searchers.items() if n != "tcm")
+        rows.append({
+            "shape": [M, K, N], "bound_ms": bnd * 1e3, "bound_by": by,
+            "tcm_rank": rank, "of": sum(s["ms"] is not None
+                                        for s in searchers.values()),
+            "searchers": searchers,
+            "gap": {c.baseline: [None if p.gap == float("inf") else p.gap
+                                 for p in c.points]
+                    for c in report.curves if c.workload == names[shp]}})
+        print(f"  {M}x{K}x{N}: TCM {plan.tiles} {tcm_ms:.4f} ms, rank "
+              f"{rank} of {rows[-1]['of']}; bound {bnd * 1e3:.4g} ms ({by})"
+              + "".join(f"; {n} {s['tile']} "
+                        + ("-" if s["ms"] is None else f"{s['ms']:.4f} ms")
+                        for n, s in searchers.items() if n != "tcm"))
+    torch.cuda.synchronize()
+    check("the kernel launched at every searcher's tile",
+          matmul_cuda.launches > 0, f"{matmul_cuda.launches} launches")
+    print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"gap": rows}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -973,7 +1151,12 @@ def main() -> int:
         print(f"phase 6 failed: {FAILURES}", file=sys.stderr)
         return 1
 
-    print("== phase 7: kernels (times summed over the main path's unique "
+    phase_evidence(get_config("qwen1_5_0_5b"))
+    if FAILURES:
+        print(f"phase 7 failed: {FAILURES}", file=sys.stderr)
+        return 1
+
+    print("== phase 8: kernels (times summed over the main path's unique "
           "shapes, each once)")
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:19"),

@@ -31,10 +31,21 @@ from ..models.lm import tree_leaves, tree_map, tree_unflatten
 
 def _host(x) -> np.ndarray:
     """A copy of ``x`` in host memory, which later in-place updates of
-    ``x`` do not reach."""
+    ``x`` do not reach.  numpy has no bfloat16: a bf16 tensor keeps its
+    2-byte bits as ``|V2``, as the reference's file holds a bf16 leaf."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view("V2")
+        return x.numpy()
     return np.array(x)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a tensor; a ``|V2`` leaf is read back as bfloat16."""
+    if a.dtype == np.dtype("V2"):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _flatten(tree) -> Dict[str, np.ndarray]:
@@ -126,7 +137,7 @@ class CheckpointManager:
             meta.get("extra", {})
 
     def restore_to(self, step: int, like_tree, device) -> Tuple[Any, Dict]:
-        """``restore``, with every array a tensor on ``device``."""
+        """``restore``, with every array a tensor on ``device`` (a
+        ``|V2`` leaf as bfloat16)."""
         host_tree, extra = self.restore(step, like_tree)
-        return tree_map(lambda a: torch.from_numpy(a).to(device),
-                        host_tree), extra
+        return tree_map(lambda a: _tensor(a).to(device), host_tree), extra

@@ -269,6 +269,46 @@ clear_caches = clear_search_caches
 
 
 # --------------------------------------------------------------------------
+# Fault injection (testing only)
+# --------------------------------------------------------------------------
+
+# Deterministic fault plan for the resilience tests/CI smoke
+# (``repro.testing.faults``): loaded lazily from the file named by
+# $TCM_FAULT_PLAN — either here on first unit in this process, or eagerly by
+# the pool initializer (which captures the env var at pool-creation time, so
+# plans installed after a forkserver has started still reach new workers).
+# With no plan installed the per-unit cost is one global read + one branch.
+_FAULT_PLAN = None
+_FAULT_PLAN_LOADED = False
+
+
+def _set_fault_plan(path: Optional[str]) -> None:
+    global _FAULT_PLAN, _FAULT_PLAN_LOADED
+    _FAULT_PLAN_LOADED = True
+    if not path:
+        _FAULT_PLAN = None
+        return
+    from ..testing.faults import load_plan
+    _FAULT_PLAN = load_plan(path)
+
+
+def reset_fault_plan() -> None:
+    """Forget any loaded plan so the next unit re-reads $TCM_FAULT_PLAN
+    (tests install/remove plans mid-process)."""
+    global _FAULT_PLAN, _FAULT_PLAN_LOADED
+    _FAULT_PLAN = None
+    _FAULT_PLAN_LOADED = False
+
+
+def _fault_hook(unit_index: int) -> None:
+    global _FAULT_PLAN_LOADED
+    if not _FAULT_PLAN_LOADED:
+        _set_fault_plan(os.environ.get("TCM_FAULT_PLAN"))
+    if _FAULT_PLAN is not None:
+        _FAULT_PLAN.fire(unit_index)
+
+
+# --------------------------------------------------------------------------
 # Work units
 # --------------------------------------------------------------------------
 
@@ -409,6 +449,7 @@ def run_work_unit(unit: WorkUnit,
     then reports its best-so-far mapping plus a sound completion lower
     bound (``WorkResult.truncated``/``lower_bound``).
     """
+    _fault_hook(unit.index)
     t_wall = time.time() if tracer is not None else 0.0
     stats = MapperStats()
     t = time.perf_counter()
@@ -640,10 +681,13 @@ _WORKER_INCUMBENT = None
 _WORKER_BUDGET = None
 
 
-def _init_worker(shared, budget_values=None) -> None:
+def _init_worker(shared, budget_values=None,
+                 fault_plan: Optional[str] = None) -> None:
     global _WORKER_INCUMBENT, _WORKER_BUDGET
     _WORKER_INCUMBENT = shared
     _WORKER_BUDGET = budget_values
+    if fault_plan is not None:
+        _set_fault_plan(fault_plan)
 
 
 def _worker_meter() -> Optional[SharedBudgetMeter]:
@@ -846,7 +890,8 @@ class ProcessPoolEngine(SearchEngine):
                 max_workers=self.workers, mp_context=ctx,
                 initializer=_init_worker,
                 initargs=(self._shared if self.share_incumbents else None,
-                          self._budget_values))
+                          self._budget_values,
+                          os.environ.get("TCM_FAULT_PLAN")))
         return self._executor
 
     def _recycle_pool(self, tracer=None, lost: int = 0) -> None:

@@ -4,8 +4,7 @@ Spans + typed counter/instant events threaded through ``tcm_map`` /
 ``tcm_map_group``, the search engines (worker-side buffers merged in unit
 order), the tile-shape steppers (per-step expansion samples with
 per-criterion prune attribution), ``repro_torch.netmap`` (cache + fusion
-decisions) and ``repro.dse`` (per-point spans, roofline prunes; not
-ported yet).
+decisions) and ``repro_torch.dse`` (per-point spans, roofline prunes).
 
 Entry points:
 

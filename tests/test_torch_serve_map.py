@@ -354,8 +354,8 @@ def test_mapper_packages_import_without_torch_jax_or_repro():
     touch the parent's CUDA context), jax or the reference package.  The
     model stack beside ``models.config`` computes with torch and is not
     imported by the mapper.  The data pipeline is numpy only as well."""
-    pkgs = ("core", "dse", "obs", "netmap", "serve_map", "configs", "models",
-            "data")
+    pkgs = ("core", "dse", "gap", "testing", "obs", "netmap", "serve_map",
+            "configs", "models", "data")
     with_torch = {"serve_map/measure.py"} | {
         f"models/{m}.py" for m in ("layers", "ssm", "rglru", "lm", "weights")}
     mods = ["repro_torch"] + sorted(
@@ -377,3 +377,8 @@ def test_mapper_packages_import_without_torch_jax_or_repro():
     assert "repro_torch.netmap.__main__" in mods
     assert "repro_torch.models.config" in mods
     assert "repro_torch.data.pipeline" in mods
+    assert {"repro_torch.dse.explore", "repro_torch.dse.__main__",
+            "repro_torch.gap.soundness", "repro_torch.gap.__main__",
+            "repro_torch.testing.faults", "repro_torch.core.baselines",
+            "repro_torch.core.bruteforce",
+            "repro_torch.core.shard_planner"} <= set(mods)

@@ -271,30 +271,59 @@ def test_async_write_error_raised_by_wait(tmp_path):
     assert mgr.all_steps() == [1]
 
 
+def _bf16_bits(x) -> np.ndarray:
+    """The 2-byte bits of a bf16 leaf: a torch tensor, a JAX array, or
+    the ``|V2`` array a checkpoint restores."""
+    if isinstance(x, torch.Tensor):
+        assert x.dtype == torch.bfloat16
+        return x.detach().cpu().view(torch.int16).numpy()
+    a = np.asarray(x)
+    assert a.dtype.itemsize == 2 and a.dtype.kind in "Vf", a.dtype
+    return a.view(np.int16)
+
+
 def test_checkpoints_read_both_ways(tmp_path):
     """A checkpoint the reference writes restores in the port, and the
-    port's in the reference: same leaves, same order, same values."""
+    port's in the reference: same leaves, same order, same values; a bf16
+    leaf bit for bit both ways (stored as ``|V2``)."""
     cfg_j, cfg = _tiny()
     params_j, _ = jlm.init(cfg_j, jax.random.PRNGKey(0))
     joc = jadamw.OptConfig(kind="adafactor", **OPT)
     opt_j = jadamw.init_opt_state(joc, params_j)
     opt_j = dict(opt_j, step=jnp.asarray(7, jnp.int32))
-    tree_j = {"params": params_j, "opt": opt_j}
+    rng = np.random.default_rng(0)
+    tree_j = {"params": params_j, "opt": opt_j,
+              "w_bf16": jnp.asarray(rng.standard_normal((3, 5)),
+                                    jnp.bfloat16)}
     JCheckpointManager(str(tmp_path / "j")).save(7, tree_j,
                                                  extra={"data": {"step": 7}})
 
     params = lm.init(cfg, torch.Generator().manual_seed(5), "cpu")
     opt = init_opt_state(OptConfig(kind="adafactor"), params)
-    like = {"params": params, "opt": opt}
+    like = {"params": params, "opt": opt,
+            "w_bf16": torch.from_numpy(rng.standard_normal((3, 5))).to(
+                torch.bfloat16)}
     got, extra = CheckpointManager(str(tmp_path / "j")).restore_to(
         7, like, "cpu")
     assert extra == {"data": {"step": 7}}
-    _assert_trees_close(got, tree_j, 0, equal=True)
+    f32 = ("params", "opt")
+    _assert_trees_close({k: got[k] for k in f32},
+                        {k: tree_j[k] for k in f32}, 0, equal=True)
     assert got["opt"]["step"].dtype == torch.int32
+    assert got["w_bf16"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bf16_bits(got["w_bf16"]),
+                                  _bf16_bits(tree_j["w_bf16"]))
 
     CheckpointManager(str(tmp_path / "t")).save(3, like)
     back, _ = JCheckpointManager(str(tmp_path / "t")).restore(3, tree_j)
-    _assert_trees_close(like, back, 0, equal=True)
+    _assert_trees_close({k: like[k] for k in f32},
+                        {k: back[k] for k in f32}, 0, equal=True)
+    assert back["w_bf16"].dtype == np.dtype("V2")
+    np.testing.assert_array_equal(_bf16_bits(back["w_bf16"]),
+                                  _bf16_bits(like["w_bf16"]))
+    port_back, _ = CheckpointManager(str(tmp_path / "t")).restore_to(
+        3, like, "cpu")
+    assert torch.equal(port_back["w_bf16"], like["w_bf16"])
 
 
 # ---------------------------------------------------------------------------
