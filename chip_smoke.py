@@ -73,27 +73,52 @@ Phases (each prints its own lines; any failure exits nonzero):
      searcher's modeled latency, tile and kernel ms, the bound and TCM's
      rank by kernel time (a baseline's tile faster than TCM's is a finding,
      not a failure);
-  8. one JSON line with each kernel's launches on the main path (phase 3),
+  8. the one-device tools (``repro_torch.distributed``, ``launch.dryrun``,
+     ``launch.roofline``, ``examples``; torch ops, the matmul kernel in the
+     autotune twin): (a) ``compress_decompress`` over seeded gradients
+     shaped like qwen1.5-0.5b's f32 parameters, held against the port's CPU
+     run on the embedding and layer 0 (codes, scales, dequantized values),
+     timed beside its bytes bound, and ``quantized_psum`` on an NCCL group
+     of one against the round trip; (b) the dry-run of qwen1.5-0.5b's
+     reference cells (train_4k, prefill_32k, decode_32k) at full width on
+     the card, and ``roofline.analyze_cell`` over each with the H100's
+     constants; (c) the dry-run of phase 6's train step (8 x 1024) and of
+     phase 5's prefill (8 x 1024) and one decode step after it, each held
+     against the same step run on the card: traced peak within 10% of
+     ``torch.cuda.max_memory_allocated``, FLOPs equal to
+     ``FlopCounterMode`` over the real run, the step's time (the median of
+     5 runs after a warm-up) beside the roofline's bound; (d) the example twins ``kernel_autotune`` (must
+     print ``(OK)``), ``train_e2e`` (20 steps) and ``quickstart``; one
+     JSON line {"tools": {...}};
+  9. one JSON line with each kernel's launches on the main path (phase 3),
      error and times;
-  9. the last line: {"ok": true, "device": {...}}.
+  10. the last line: {"ok": true, "device": {...}}.
 
 Needs torch with CUDA, nvcc and one card; it fails without them.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import socket
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.autotile import (kernel_takes,  # noqa: E402
@@ -110,10 +135,17 @@ from repro_torch.kernels.ops import _pad_to, tcm_matmul  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, matmul_ref  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens  # noqa
+from repro_torch.distributed import compression  # noqa: E402
 from repro_torch.dse.__main__ import main as dse_main  # noqa: E402
+from repro_torch.examples import (kernel_autotune, quickstart,  # noqa
+                                  train_e2e)
 from repro_torch.gap.__main__ import main as gap_main  # noqa: E402
 from repro_torch.gap.runner import BASELINES, REL_EPS, run_gap  # noqa
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.dryrun import (Cell, count, fill_cache,  # noqa
+                                       make_inputs, run_cell, trace_step)
+from repro_torch.launch.roofline import (analytic_hbm_bytes,  # noqa: E402
+                                         analyze_cell)
 from repro_torch.measure import (_randn, main_path_rows,  # noqa: E402
                                  run_model, time_call)
 from repro_torch.models import lm  # noqa: E402
@@ -976,15 +1008,20 @@ def phase_training() -> None:
     print(json.dumps({"trained": rep}))
 
 
+def run_argv(main_fn, argv):
+    """``main_fn()``, which reads ``sys.argv``, with ``argv`` in it."""
+    saved = sys.argv
+    sys.argv = argv
+    try:
+        return main_fn()
+    finally:
+        sys.argv = saved
+
+
 def run_gap_cli(argv) -> int:
     """``python -m repro_torch.gap`` in this process (it reads
     ``sys.argv``)."""
-    saved = sys.argv
-    sys.argv = ["repro_torch.gap"] + argv
-    try:
-        return gap_main()
-    finally:
-        sys.argv = saved
+    return run_argv(gap_main, ["repro_torch.gap"] + argv)
 
 
 def evidence_clis() -> None:
@@ -1123,6 +1160,235 @@ def phase_evidence(cfg) -> None:
     print(json.dumps({"gap": rows}))
 
 
+# the one-device tools (phase 8): compression over a tree shaped like
+# qwen1.5-0.5b's f32 parameters; the model's reference dry-run cells; the
+# dry-run held against the steps on the card (phase 6's train step, phase
+# 5's prefill and one decode step after it); the example twins
+TOOLS_ARCH = "qwen1.5-0.5b"
+TOOLS_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+TOOLS_STEPS = [Cell("train", 8, 1024), Cell("prefill", 8, 1024, 1056),
+               Cell("decode", 8, 1025, 1056)]
+TOOLS_REPEATS = 5  # timed runs of each held step, after a warm-up
+PEAK_TOL = 0.10  # dry-run peak against torch.cuda.max_memory_allocated
+E2E_STEPS = 20  # train_e2e's 300 steps, cut for time
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_compression(cfg) -> dict:
+    """(a): ``compress_decompress`` over seeded gradients shaped like the
+    f32 parameters on the card, held against the port's CPU run on the
+    embedding and layer 0's leaves (codes and scales bitwise, or the tie
+    differences counted), timed beside its bytes bound; ``quantized_psum``
+    on an NCCL group of one equal to the round trip."""
+    with FakeTensorMode():
+        like = lm.init(cfg, torch.Generator(), "cpu")
+    g = gen(8)
+    grads = lm.tree_unflatten(like, [
+        torch.randn(t.shape, generator=g, device="cuda")
+        for t in lm.tree_leaves(like)])
+    n = sum(t.numel() for t in lm.tree_leaves(grads))
+    sub = {"embed": grads["embed"],
+           "layer0": lm.tree_map(lambda t: t[0], grads["groups"][0])}
+    code_diff = scale_diff = 0
+    worst_step = 0
+    for leaf in lm.tree_leaves(sub):
+        q, s = compression._quant(leaf)
+        qc, sc = compression._quant(leaf.cpu())
+        diff = q.cpu().int() - qc.int()
+        code_diff += int((diff != 0).sum())
+        worst_step = max(worst_step, int(diff.abs().max()))
+        scale_diff += int((s.cpu() != sc).sum())
+    deq, err = compression.compress_decompress(
+        sub, compression.init_error_feedback(sub))
+    cpu = lm.tree_map(lambda t: t.cpu(), sub)
+    deq_c, err_c = compression.compress_decompress(
+        cpu, compression.init_error_feedback(cpu))
+    deq_equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+        lm.tree_leaves(deq) + lm.tree_leaves(err),
+        lm.tree_leaves(deq_c) + lm.tree_leaves(err_c)))
+    n_sub = sum(t.numel() for t in lm.tree_leaves(sub))
+    # a tie coded the other way (one step) may change its dequantized
+    # value and residual; nothing else may differ
+    check(f"compression on the card vs the CPU ({n_sub} values: embedding "
+          f"and layer 0)", scale_diff == 0 and worst_step <= 1
+          and (deq_equal or code_diff > 0),
+          f"{code_diff} codes differ (at most {worst_step} step), "
+          f"{scale_diff} scales differ, dequantized values and residuals "
+          f"{'bitwise equal' if deq_equal else 'differ'}")
+    del deq, err, cpu, deq_c, err_c
+    carry = compression.init_error_feedback(grads)
+    ms = time_call(lambda: compression.compress_decompress(grads, carry),
+                   torch.device("cuda"), repeats=3, iters=2) * 1e3
+    nbytes = 16 * n  # read g and e, write deq and e, f32
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    check(f"compress_decompress over {n} f32 values", math.isfinite(ms),
+          f"{ms:.3f} ms, bound {bound:.3f} ms (bytes, {nbytes / 1e9:.2f} "
+          f"GB), {bound / ms:.3f} of it")
+    del carry
+    x = grads["embed"]["tok"][:4096]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        out = compression.quantized_psum(x, dist.group.WORLD)
+        q, s = compression._quant(x)
+        same = torch.equal(out, compression._dequant(q, s, x.shape))
+    finally:
+        dist.destroy_process_group()
+    check(f"quantized_psum on an NCCL group of 1 ({x.numel()} values) == "
+          f"the round trip", same, "bitwise" if same else "differs")
+    return {"values": n, "ms": ms, "bound_ms": bound, "bytes": nbytes,
+            "held_values": n_sub, "codes_differ": code_diff,
+            "scales_differ": scale_diff, "deq_bitwise": deq_equal,
+            "psum_bitwise": same}
+
+
+def check_dryrun_cells(tmp: str) -> list:
+    """(b): the reference's dry-run cells of the model on the card, and
+    the roofline over them with the H100's constants."""
+    rows = []
+    for shape in TOOLS_CELLS:
+        res = run_cell(TOOLS_ARCH, shape, device="cuda")
+        path = Path(tmp) / f"{TOOLS_ARCH}__{shape}__one.json"
+        path.write_text(json.dumps(res))
+        roof = analyze_cell(path)
+        mem = res["memory_per_device"]
+        check(f"dry-run {TOOLS_ARCH} {shape}", "error" not in res
+              and res["n_devices"] == 1
+              and res["hlo"]["per_device_flops"] > 0
+              and res["hlo"]["total_collective_bytes"] == 0,
+              f"traced layers {res['traced_layers']} in "
+              f"{res['hlo']['trace_s']} s, {res['hlo']['ops']} ops, "
+              f"{res['hlo']['per_device_flops']:.4g} FLOPs, peak "
+              f"{mem['peak_live_bytes'] / 2**30:.2f} GiB; roofline "
+              f"compute {roof['compute_s']:.4g} s, memory "
+              f"{roof['memory_s']:.4g} s ({roof['dominant']}), useful "
+              f"FLOP ratio {roof['useful_ratio']:.3f}")
+        rows.append({"shape": shape, "dryrun": res, "roofline": roof})
+    return rows
+
+
+def step_bound_ms(cfg, cell, flops: float) -> tuple:
+    """The roofline's bound of a step: its traced FLOPs at the bf16 peak
+    against ``analytic_hbm_bytes`` at the HBM rate."""
+    tf = flops / PEAK_BF16_FLOPS * 1e3
+    tb = analytic_hbm_bytes(cfg, cell) / PEAK_BYTES_S * 1e3
+    return max(tf, tb), "operations" if tf >= tb else "bytes"
+
+
+def check_dryrun_vs_card(cfg) -> list:
+    """(c): each step's fake trace against the same step on the card:
+    peak within ``PEAK_TOL`` of the allocator's peak over the real run
+    (from a reset before its inputs exist), FLOPs equal to
+    ``FlopCounterMode`` over it; then the step after a warm-up,
+    ``TOOLS_REPEATS`` times on the host's clock (each to a
+    synchronize), and their median."""
+    dev = torch.device("cuda")
+    rows = []
+    for cell in TOOLS_STEPS:
+        c = cfg if cell.kind == "train" else cfg.scaled(
+            param_dtype="bfloat16")
+        fake = trace_step(c, cell, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step, args = make_inputs(c, cell, dev)
+        with FlopCounterMode(display=False) as fc:
+            real = count(step, args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        samples = []
+        for _ in range(1 + TOOLS_REPEATS):  # a warm-up, then the repeats
+            if cell.kind != "train":  # rewind the cache the step filled
+                fill_cache(args[2], 0 if cell.kind == "prefill"
+                           else cell.seq_len - 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        samples = samples[1:]
+        ms = statistics.median(samples)
+        del step, args
+        want = fake["memory_per_device"]["peak_live_bytes"]
+        flops = fake["hlo"]["per_device_flops"]
+        bound, by = step_bound_ms(c, cell, flops)
+        check(f"dry-run vs the card: {cell.kind} {cell.global_batch}x"
+              f"{cell.seq_len}", abs(want - peak) <= PEAK_TOL * peak
+              and flops == fc.get_total_flops()
+              and flops == real["hlo"]["per_device_flops"],
+              f"peak {want} B traced vs {peak} B allocated "
+              f"({want / peak - 1:+.4f}; tracked on the card "
+              f"{real['memory_per_device']['peak_live_bytes']} B), FLOPs "
+              f"{flops:.6g} traced vs {fc.get_total_flops():.6g} counted, "
+              f"{ms:.2f} ms (median of {TOOLS_REPEATS}) against the bound {bound:.3f} ms ({by})")
+        rows.append({"kind": cell.kind, "batch": cell.global_batch,
+                     "seq": cell.seq_len, "cache_len": cell.cache_len,
+                     "traced_peak_bytes": want, "allocated_peak_bytes": peak,
+                     "tracked_peak_bytes_on_card":
+                         real["memory_per_device"]["peak_live_bytes"],
+                     "flops": flops, "counted_flops": fc.get_total_flops(),
+                     "ms": ms, "ms_samples": samples, "bound_ms": bound, "bound_by": by,
+                     "trace_s": fake["hlo"]["trace_s"]})
+    return rows
+
+
+def check_examples(tmp: str) -> dict:
+    """(d): the example twins on the card, each in a temp cwd."""
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for name, run in (
+                ("kernel_autotune", lambda: kernel_autotune.main([])),
+                ("train_e2e", lambda: train_e2e.main([
+                    "--steps", str(E2E_STEPS), "--ckpt-dir",
+                    os.path.join(tmp, "e2e")])),
+                ("quickstart", lambda: run_argv(quickstart.main,
+                                                ["quickstart"]))):
+            buf = io.StringIO()
+            launches = matmul_cuda.launches
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = run()
+            text = buf.getvalue()
+            out[name] = {"s": time.perf_counter() - t0,
+                         "last": text.strip().splitlines()[-1],
+                         "matmul_launches": matmul_cuda.launches - launches}
+            ok = {"kernel_autotune": res is True
+                  and out[name]["last"].endswith("(OK)")
+                  and out[name]["matmul_launches"] > 0,
+                  "train_e2e": res is not None and math.isfinite(res),
+                  "quickstart": "whole-model mapping" in text}[name]
+            check(f"example twin {name}", ok,
+                  f"{out[name]['last']!r} in {out[name]['s']:.1f} s, "
+                  f"{out[name]['matmul_launches']} matmul kernel launches")
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def phase_tools() -> None:
+    print("== phase 8: the one-device tools (compression, dry-run and "
+          "roofline, example twins)")
+    t0 = time.perf_counter()
+    cfg = get_config(TOOLS_ARCH)
+    rep = {"compression": check_compression(cfg)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="tcm-tools-") as tmp:
+        rep["dryrun"] = check_dryrun_cells(tmp)
+        rep["dryrun_vs_card"] = check_dryrun_vs_card(cfg)
+        rep["examples"] = check_examples(tmp)
+    rep["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 8 took {rep['phase_s']:.1f} s")
+    print(json.dumps({"tools": rep}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1155,8 +1421,12 @@ def main() -> int:
     if FAILURES:
         print(f"phase 7 failed: {FAILURES}", file=sys.stderr)
         return 1
+    phase_tools()
+    if FAILURES:
+        print(f"phase 8 failed: {FAILURES}", file=sys.stderr)
+        return 1
 
-    print("== phase 8: kernels (times summed over the main path's unique "
+    print("== phase 9: kernels (times summed over the main path's unique "
           "shapes, each once)")
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:19"),

@@ -1,1 +1,1 @@
-"""Sharding helpers for the model stack (one device: identities)."""
+"""Sharding rules and int8 gradient compression, on one device."""

@@ -26,6 +26,7 @@ from ..models import lm
 from ..models.config import ModelConfig
 from ..models.weights import cast_for_compute
 from ..serving.engine import make_serve_steps
+from .mesh import describe, make_elastic_mesh
 
 VLM_EMBEDS = 8  # frontend embeddings a vlm prompt carries, as the reference
 
@@ -202,6 +203,9 @@ def main(argv=None):
                          "--device cuda")
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    # the mesh of the one device this run serves from
+    print(describe(make_elastic_mesh(target_model=args.model_parallel,
+                                     devs=[dev])))
     B, P, G = args.batch, args.prompt_len, args.gen
     plan: Optional[Dict] = None
     if args.map_service:

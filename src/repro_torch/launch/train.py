@@ -38,6 +38,7 @@ from ..measure import device_name, device_time, resolve_device
 from ..models import lm
 from ..optim.adamw import OptConfig
 from ..training.step import init, make_train_step
+from .mesh import describe, make_elastic_mesh
 
 
 def _summary(cfg, args, dev, start_step, times, losses, gnorms,
@@ -102,7 +103,9 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     oc = OptConfig(kind=args.optimizer, lr=args.lr,
                    decay_steps=max(args.steps, 10))
-    print("mesh: {'data': 1, 'model': 1} devices=1")
+    # the mesh of the one device this run trains on
+    print(describe(make_elastic_mesh(target_model=args.model_parallel,
+                                     devs=[dev])))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 

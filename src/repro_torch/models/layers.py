@@ -437,12 +437,14 @@ def moe(cfg, p: Params, x):
     # load-balancing aux loss (Switch-style)
     me = probs.mean(0)
     flat_expert = expert_idx.reshape(-1)  # (T*K,)
-    ce = torch.bincount(flat_expert, minlength=E).float() / (T * K)
+    onehot = F.one_hot(flat_expert, E)  # (T*K, E)
+    # the counts of ``bincount``, in a shape that does not depend on the
+    # data (the dry-run traces it)
+    ce = onehot.sum(0).float() / (T * K)
     aux = E * torch.sum(me * ce)
 
     capacity = int(max(1, math.ceil(T * K * cfg.capacity_factor / E)))
     # position of each (token, k) within its expert's queue
-    onehot = F.one_hot(flat_expert, E)  # (T*K, E)
     pos_in_expert = torch.cumsum(onehot, dim=0) - onehot
     pos = pos_in_expert.gather(1, flat_expert[:, None])[:, 0]  # (T*K,)
     keep = pos < capacity

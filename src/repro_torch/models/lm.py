@@ -3,6 +3,7 @@
 Port of ``repro.models.lm``:
 
   init(cfg, generator, device)         -> params
+  param_specs(cfg)                     -> the params' logical-axis specs
   forward(cfg, params, tokens, ...)    -> (logits, caches, aux)
   loss_fn(cfg, params, batch)          -> (loss, parts)   (differentiable)
   init_cache(cfg, batch, max_len, device) -> cache
@@ -218,6 +219,73 @@ def _stack_groups(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     if cfg.family == "audio":
         return [(("enc",), cfg.enc_layers), (("xattn",), cfg.dec_layers)]
     return [((pat[0],), cfg.n_layers)]
+
+
+_NORM = {"scale": ("embed",)}
+_MLP = {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"),
+        "wd": ("mlp", "embed")}
+_MOE = {"router": ("embed", "expert"), "wg": ("expert", "embed", "mlp"),
+        "wu": ("expert", "embed", "mlp"), "wd": ("expert", "mlp", "embed")}
+_SSM = {"w_in": ("embed", "mlp"), "conv": (None, "mlp"),
+        "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+        "w_out": ("mlp", "embed"), "norm_scale": ("mlp",)}
+_RGLRU = {"w_x": ("embed", "mlp"), "w_y": ("mlp", "embed"),
+          "conv": (None, "mlp"), "w_input_gate": ("mlp", "mlp2"),
+          "w_a_gate": ("mlp", "mlp2"), "lam": ("mlp",)}
+
+
+def _attention_specs(cfg: ModelConfig) -> Params:
+    s = {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+         "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        s.update(bq=("heads",), bk=("kv",), bv=("kv",))
+    return s
+
+
+def _layer_specs(cfg: ModelConfig, kind: str) -> Params:
+    """The logical axes of ``_layer_params``' leaves, as the reference's
+    layer creators return them beside the parameters."""
+    s: Params = {"ln1": dict(_NORM)}
+    if kind in ("attn", "enc", "wattn", "xattn"):
+        s["attn"] = _attention_specs(cfg)
+        if kind == "xattn":
+            s["cross"] = _attention_specs(cfg)
+            s["ln_cross"] = dict(_NORM)
+    elif kind == "ssm":
+        s["ssm"] = dict(_SSM)
+    elif kind == "rglru":
+        s["rglru"] = dict(_RGLRU)
+    else:
+        raise ValueError(kind)
+    if kind != "ssm":
+        s["ln2"] = dict(_NORM)
+        if cfg.n_experts and kind == "attn":
+            s["moe"] = dict(_MOE)
+        else:
+            s["mlp"] = dict(_MLP)
+    return s
+
+
+def _stacked(specs: Params) -> Params:
+    """Each spec of a layer with the stack's leading 'layers' axis."""
+    return {k: _stacked(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in specs.items()}
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The logical-axis spec of every parameter, in ``init``'s tree: the
+    ``specs`` the reference's ``lm.init`` returns beside the parameters
+    (tuples of logical axis names, ``distributed.sharding.RULES`` maps
+    them to mesh axes).  Pure Python from ``cfg``: nothing is allocated."""
+    specs: Params = {"embed": {"tok": ("vocab", "embed")},
+                     "final_norm": dict(_NORM)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    if cfg.frontend != "none":
+        specs["frontend_proj"] = (None, "embed")
+    specs["groups"] = [[_stacked(_layer_specs(cfg, kind)) for kind in kinds]
+                       for kinds, _ in _stack_groups(cfg)]
+    return specs
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device) -> Params:

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..distributed.sharding import map_specs
 from ..models.lm import tree_leaves, tree_map, tree_zip
 
 
@@ -65,10 +66,20 @@ def init_opt_state(oc: OptConfig, params):
 
 
 def opt_state_specs(oc: OptConfig, specs):
-    """The reference's sharding specs for the state, which mirror the
-    parameters'.  One device shards nothing, so this is a documented
-    identity on ``specs``, kept so callers read as the reference's."""
-    return specs
+    """Logical-axis specs of the state, in ``init_opt_state``'s tree, from
+    the parameters' (``models.lm.param_specs``): AdamW's ``m`` and ``v``
+    take the parameters' specs, Adafactor's factors drop the last axis
+    (``vr``) or the one before it (``vc``); ``step`` is a scalar, ``()``."""
+    if oc.kind == "adamw":
+        return {"m": specs, "v": specs, "step": ()}
+    if oc.kind == "adafactor":
+        def factored(spec):
+            spec = tuple(spec)
+            if len(spec) >= 2:
+                return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+            return {"v": spec}
+        return {"f": map_specs(factored, specs), "step": ()}
+    raise ValueError(oc.kind)
 
 
 def _global_norm(tree) -> torch.Tensor:

@@ -23,11 +23,15 @@ from ..optim.adamw import OptConfig, apply_updates, init_opt_state
 
 def _to_device(batch: Dict[str, np.ndarray],
                device) -> Dict[str, torch.Tensor]:
-    """A numpy batch on ``device``: integer arrays as int64 (torch indexes
-    and gathers with them), float arrays as f32."""
-    return {k: torch.from_numpy(np.asarray(v)).to(
-        device, torch.int64 if np.asarray(v).dtype.kind in "iu"
-        else torch.float32) for k, v in batch.items()}
+    """A numpy batch, or a batch of tensors, on ``device``: integer arrays
+    as int64 (torch indexes and gathers with them), float arrays as f32.
+    A tensor already on ``device`` in that dtype is taken as it is."""
+    def one(v):
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.asarray(v))
+        return v.to(device, torch.float32 if v.is_floating_point()
+                    else torch.int64)
+    return {k: one(v) for k, v in batch.items()}
 
 
 def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1):

@@ -2,7 +2,8 @@
 the training path on the card against the CPU.
 
 Duplicates of ``chip_smoke.py`` phase 2 at the reference tests' shapes and
-tolerances, and of phase 6 (a)-(b) at smoke size.  Like the port, this
+tolerances, of phase 6 (a)-(b) at smoke size, and of phase 8 (a)'s
+compression check.  Like the port, this
 file imports no JAX.  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -17,6 +18,7 @@ from repro_torch.kernels.matmul import (matmul_cuda, matmul_plain,
                                         wgmma_instance, wgmma_instances)
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+from repro_torch.distributed import compression
 from repro_torch.kernels.ref import attention_ref, matmul_ref
 from repro_torch.models import lm
 from repro_torch.models.layers import flash_attention
@@ -191,3 +193,25 @@ def test_train_step_on_card_matches_cpu(cuda_device):
                                    rtol=1e-5)
     for a, b in zip(lm.tree_leaves(card), lm.tree_leaves(cpu)):
         np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_compression_on_card_equals_cpu_bitwise(cuda_device):
+    """int8 codes, scales, dequantized values and residuals on the card
+    equal the CPU's bit for bit (a Python-scalar divisor would be taken as
+    a product with its reciprocal on CUDA and round differently)."""
+    rng = np.random.default_rng(5)
+    g = {"w": torch.from_numpy(rng.normal(size=(300, 70)).astype(
+        np.float32)), "b": torch.from_numpy(rng.normal(size=(4096,)).astype(
+            np.float32) * 1e-3)}
+    card = lm.tree_map(lambda t: t.to(cuda_device), g)
+    for key in g:
+        q, s = compression._quant(g[key])
+        qc, sc = compression._quant(card[key])
+        assert torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), s)
+    out = compression.compress_decompress(g, compression.init_error_feedback(
+        g))
+    out_c = compression.compress_decompress(
+        card, compression.init_error_feedback(card))
+    for a, b in zip(lm.tree_leaves(out), lm.tree_leaves(out_c)):
+        assert torch.equal(b.cpu(), a)
