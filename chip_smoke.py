@@ -90,11 +90,28 @@ Phases (each prints its own lines; any failure exits nonzero):
      5 runs after a warm-up) beside the roofline's bound; (d) the example twins ``kernel_autotune`` (must
      print ``(OK)``), ``train_e2e`` (20 steps) and ``quickstart``; one
      JSON line {"tools": {...}};
-  9. one JSON line with each kernel's launches on the main path (phase 3),
+  9. the sharded path (``repro_torch.launch.train``/``serve`` over a
+     ``torch.distributed`` mesh, ``distributed.sharding``'s DTensor
+     layouts; torch ops, no kernel of this repo): children of
+     ``torch.distributed.run --standalone`` with NCCL over every card
+     train phase 6's bf16 8 x 1024 for 3 steps in ``--mode dp`` (the
+     reference's mode for this arch) and ``tp``, and serve phase 5's
+     8 x 1024 + 32; the losses and grad norms are held against phase 6's
+     first steps at the bf16 tolerance, the greedy tokens against phase
+     5's (equal).  On one card the mesh is 1x1 and ``--model-parallel 2``
+     must fail; with two or more, a 2-way run is held the same way, its
+     tokens by the first of each sequence (bf16 partial sums are reduced
+     across cards, so later tokens may part) and their equal share.  One
+     JSON line {"sharded": {...}}: step, prefill and decode ms beside the
+     one-device run's, each rank's peak memory;
+  10. one JSON line with each kernel's launches on the main path (phase 3),
      error and times;
-  10. the last line: {"ok": true, "device": {...}}.
+  11. the last line: {"ok": true, "device": {...}}.
 
 Needs torch with CUDA, nvcc and one card; it fails without them.
+``python3 chip_smoke.py --sharded`` runs phase 9 alone (over every card
+the machine shows), after one-device runs of ``launch.train`` and
+``launch.serve`` at phase 6's and phase 5's shapes to hold it against.
 """
 from __future__ import annotations
 
@@ -694,7 +711,8 @@ def served_bounds(cfg, B, P, G) -> dict:
             "tok_s": B / db}
 
 
-def phase_served_model() -> None:
+def phase_served_model() -> dict:
+    """Phase 5; returns the bf16 serve's report, its tokens included."""
     print("== phase 5: served model, qwen1.5-0.5b at full width")
     B, P, G = SERVE_CHECK
     cfg = get_config("qwen1_5_0_5b").scaled(dtype="float32")
@@ -753,6 +771,7 @@ def phase_served_model() -> None:
           f"activities, busy {busy} ms; busy share of the unprofiled step "
           f"{share} (None: the profiler traced no device activity)")
     print(json.dumps({"served": rep}))
+    return rep
 
 
 def check_flash_backward() -> dict:
@@ -994,7 +1013,8 @@ def check_resume() -> dict:
     return rep
 
 
-def phase_training() -> None:
+def phase_training() -> dict:
+    """Phase 6; returns its report (``run``: the first training run's)."""
     print("== phase 6: training path, qwen1.5-0.5b at full width")
     t0 = time.perf_counter()
     fa = check_flash_backward()
@@ -1006,6 +1026,7 @@ def phase_training() -> None:
     rep["phase_s"] = time.perf_counter() - t0
     print(f"  phase 6 took {rep['phase_s']:.1f} s")
     print(json.dumps({"trained": rep}))
+    return rep
 
 
 def run_argv(main_fn, argv):
@@ -1389,10 +1410,200 @@ def phase_tools() -> None:
     print(json.dumps({"tools": rep}))
 
 
+# the sharded path (phase 9): launch.train and launch.serve as children of
+# torch.distributed.run over every card (NCCL), at phase 6's and phase 5's
+# shapes; the reference's mode for this arch (dry-run MODE_OVERRIDES) first
+SHARDED_TRAIN_STEPS = 3
+SHARDED_MODES = ("dp", "tp")
+SHARDED_TIMEOUT_S = 300  # each child launch
+# the sharded run against the one-device run on the same card, in bf16:
+# the losses within phase 6's bf16 tolerance, the greedy tokens equal (the
+# first of each sequence where 'model' > 1; see sharded_serve)
+SHARDED_LOSS_RTOL = FA_GRAD_TOL[torch.bfloat16]
+
+
+def launch(module: str, nproc: int, args: list, cwd: str) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    nproc -m module args`` in ``cwd``, killed with its ranks at
+    ``SHARDED_TIMEOUT_S``: (exit code, output tail, seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "-m", module, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=SHARDED_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        out += f"\n(killed at {SHARDED_TIMEOUT_S} s)"
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def failure(rc: int, out: str) -> str:
+    """A failed child's exit code and the lines that name its error."""
+    lines = [ln for ln in out.splitlines() if ("Error" in ln or "killed"
+             in ln) and "ChildFailedError" not in ln]
+    return f"exit {rc}: " + " | ".join(lines[-6:])[-2000:]
+
+
+def sharded_train(tmp: str, nproc: int, mp: int, mode: str,
+                  one: dict) -> dict:
+    """``launch.train`` over ``nproc`` ranks, 'model' = ``mp``, held
+    against the one-device run's first steps."""
+    B, S = TRAIN[:2]
+    path = os.path.join(tmp, f"train_{nproc}_{mp}_{mode}.json")
+    rc, out, secs = launch("repro_torch.launch.train", nproc, [
+        "--arch", "qwen1.5-0.5b", "--global-batch", str(B), "--seq-len",
+        str(S), "--steps", str(SHARDED_TRAIN_STEPS), "--mode", mode,
+        "--model-parallel", str(mp), "--log-every", "1", "--json", path],
+        tmp)
+    rep = json.load(open(path)) if rc == 0 and os.path.exists(path) else None
+    n = SHARDED_TRAIN_STEPS
+    if rep is None:
+        check(f"sharded train, {nproc} rank(s), model={mp}, --mode {mode}",
+              False, failure(rc, out))
+        return {"exit": rc}
+    # like for like: phase 6's steps after the first and before its first
+    # checkpoint write (the children write none)
+    one_ms = statistics.median(one["step_ms"][1:n])
+    rel = [abs(a / b - 1) for a, b in zip(rep["loss"], one["loss"][:n])]
+    grel = [abs(a / b - 1) for a, b in zip(rep["grad_norm"],
+                                             one["grad_norm"][:n])]
+    check(f"sharded train {B}x{S}, {nproc} rank(s), mesh {rep['mesh']}, "
+          f"--mode {mode}: losses and grad norms against the one-device run",
+          len(rel) == n and max(rel + grel) <= SHARDED_LOSS_RTOL
+          and rep["mode"] == mode,
+          f"loss {rep['loss']}, max rel diff loss {max(rel):.3g}, grad norm "
+          f"{max(grel):.3g} (tol {SHARDED_LOSS_RTOL}); step "
+          f"{rep['step_ms_median']:.1f} ms (one device {one_ms:.1f}); peak "
+          f"per rank "
+          f"{[p / 2**30 for p in rep['peak_bytes_per_rank']]} GiB; child "
+          f"{secs:.1f} s")
+    return {"nproc": nproc, "model_parallel": mp, "mode": mode,
+            "mesh": rep["mesh"], "loss": rep["loss"],
+            "grad_norm": rep["grad_norm"], "loss_max_rel_diff": max(rel),
+            "grad_norm_max_rel_diff": max(grel), "step_ms": rep["step_ms"],
+            "step_ms_median": rep["step_ms_median"],
+            "one_device_step_ms_median": one_ms,
+            "host_overhead_ms": rep["step_ms_median"] - one_ms,
+            "peak_bytes_per_rank": rep["peak_bytes_per_rank"],
+            "child_s": secs}
+
+
+def sharded_serve(tmp: str, nproc: int, mp: int, mode: str,
+                  one: dict) -> dict:
+    """``launch.serve`` over ``nproc`` ranks, held against phase 5's
+    tokens."""
+    B, P, G = SERVE
+    path = os.path.join(tmp, f"serve_{nproc}_{mp}_{mode}.json")
+    rc, out, secs = launch("repro_torch.launch.serve", nproc, [
+        "--arch", "qwen1.5-0.5b", "--batch", str(B), "--prompt-len", str(P),
+        "--gen", str(G), "--mode", mode, "--model-parallel", str(mp),
+        "--json", path], tmp)
+    rep = json.load(open(path)) if rc == 0 and os.path.exists(path) else None
+    if rep is None:
+        check(f"sharded serve, {nproc} rank(s), model={mp}, --mode {mode}",
+              False, failure(rc, out))
+        return {"exit": rc}
+    got, want = torch.tensor(rep["tokens"]), torch.tensor(one["tokens"])
+    same = torch.equal(got, want)
+    share = (got == want).float().mean().item()
+    # 'model' > 1 sums each row-parallel product's bf16 partials across
+    # cards, rounding where one card rounds once: tokens may part later
+    # in a sequence, so there the first token of each is held
+    held = "all" if mp == 1 else "the first of each"
+    ok = same if mp == 1 else bool((got[:, 0] == want[:, 0]).all())
+    check(f"sharded serve {B}x{P} + {G}, {nproc} rank(s), mesh "
+          f"{rep['mesh']}, --mode {mode}: greedy tokens against the "
+          f"one-device run ({held} equal)", ok,
+          f"{share:.4f} of tokens equal; prefill {rep['prefill_ms']:.3f} "
+          f"ms (one device "
+          f"{one['prefill_ms']:.3f}), decode {rep['decode_ms_per_step']:.3f}"
+          f" ms a step (one device {one['decode_ms_per_step']:.3f}); peak "
+          f"per rank {[p / 2**30 for p in rep['peak_bytes_per_rank']]} "
+          f"GiB; child {secs:.1f} s")
+    return {"nproc": nproc, "model_parallel": mp, "mode": mode,
+            "mesh": rep["mesh"], "tokens_equal": same,
+            "tokens_equal_share": share,
+            "prefill_ms": rep["prefill_ms"],
+            "decode_ms_per_step": rep["decode_ms_per_step"],
+            "one_device_prefill_ms": one["prefill_ms"],
+            "one_device_decode_ms_per_step": one["decode_ms_per_step"],
+            "host_overhead_prefill_ms": rep["prefill_ms"]
+            - one["prefill_ms"],
+            "host_overhead_decode_ms_per_step": rep["decode_ms_per_step"]
+            - one["decode_ms_per_step"],
+            "peak_bytes_per_rank": rep["peak_bytes_per_rank"],
+            "child_s": secs}
+
+
+def phase_sharded(served: dict, trained: dict) -> None:
+    """Phase 9: the sharded path under torch.distributed.run and NCCL at
+    full width, over every card, against phases 5 and 6."""
+    print("== phase 9: the sharded path (torch.distributed.run, NCCL), "
+          "qwen1.5-0.5b at full width")
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()  # the children need the card's memory
+    rep = {"cards": cards, "train": [], "serve": []}
+    with tempfile.TemporaryDirectory(prefix="tcm-sharded-") as tmp:
+        meshes = [1] + ([2] if cards >= 2 else [])
+        if cards < 2:
+            print(f"  ran 1-way only: the machine shows {cards} card")
+            # no fallback: 2-way on one card must fail, not run 1-way
+            rc, out, _ = launch("repro_torch.launch.train", cards, [
+                "--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1",
+                "--model-parallel", "2"], tmp)
+            check("--model-parallel 2 over 1 card refuses",
+                  rc != 0 and "do not split into model=2" in out,
+                  f"exit {rc}")
+        for mp in meshes:
+            for mode in SHARDED_MODES:
+                rep["train"].append(sharded_train(tmp, cards, mp, mode,
+                                                  trained))
+            rep["serve"].append(sharded_serve(tmp, cards, mp, "tp", served))
+    rep["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 9 took {rep['phase_s']:.1f} s")
+    print(json.dumps({"sharded": rep}))
+
+
+def sharded_alone() -> int:
+    """``--sharded``: phase 9 alone, held against one-device runs of
+    ``launch.train`` (3 steps) and ``launch.serve`` at phase 6's and
+    phase 5's shapes, for a machine with more cards than the full run
+    needs."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    with tempfile.TemporaryDirectory(prefix="tcm-one-") as tmp:
+        B, S = TRAIN[:2]
+        train.main(["--arch", "qwen1.5-0.5b", "--global-batch", str(B),
+                    "--seq-len", str(S), "--steps",
+                    str(SHARDED_TRAIN_STEPS), "--log-every", "1", "--json",
+                    os.path.join(tmp, "t.json")])
+        torch.cuda.empty_cache()
+        B, P, G = SERVE
+        serve.main(["--arch", "qwen1.5-0.5b", "--batch", str(B),
+                    "--prompt-len", str(P), "--gen", str(G), "--json",
+                    os.path.join(tmp, "s.json")])
+        with open(os.path.join(tmp, "s.json")) as fs, \
+                open(os.path.join(tmp, "t.json")) as ft:
+            served, trained = json.load(fs), json.load(ft)
+    phase_sharded(served, trained)
+    return 1 if FAILURES else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 stays IEEE
     phase_environment()
     phase_kernels()
@@ -1408,11 +1619,11 @@ def main() -> int:
         print(f"phase 4 failed: {FAILURES}", file=sys.stderr)
         return 1
 
-    phase_served_model()
+    served = phase_served_model()
     if FAILURES:
         print(f"phase 5 failed: {FAILURES}", file=sys.stderr)
         return 1
-    phase_training()
+    trained = phase_training()
     if FAILURES:
         print(f"phase 6 failed: {FAILURES}", file=sys.stderr)
         return 1
@@ -1425,8 +1636,12 @@ def main() -> int:
     if FAILURES:
         print(f"phase 8 failed: {FAILURES}", file=sys.stderr)
         return 1
+    phase_sharded(served, trained["run"])
+    if FAILURES:
+        print(f"phase 9 failed: {FAILURES}", file=sys.stderr)
+        return 1
 
-    print("== phase 9: kernels (times summed over the main path's unique "
+    print("== phase 10: kernels (times summed over the main path's unique "
           "shapes, each once)")
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:19"),
@@ -1443,6 +1658,7 @@ def main() -> int:
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["tb"] >= s["tf"] else "operations",
             "library_ms": s["library_ms"]})
+    print(f"  phases 1-10 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
@@ -1459,4 +1675,6 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--resume-check"]:
         resume_check()
         sys.exit(0)
+    if sys.argv[1:] == ["--sharded"]:
+        sys.exit(sharded_alone())
     sys.exit(main())

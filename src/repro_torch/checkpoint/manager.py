@@ -10,8 +10,13 @@ a thread; one write is outstanding at a time, and its error is raised by
 the next ``wait``.  Leaves are numbered in ``jax.tree.flatten``'s order
 (dict keys sorted, lists and tuples in order), so a checkpoint written by
 either package restores in the other.  ``restore`` returns numpy arrays;
-``restore_to`` puts them on a device and takes the place of the
-reference's ``restore_sharded``.
+``restore_to`` puts them on one device and ``restore_sharded`` places them
+on the current mesh, whatever mesh wrote them (the elastic restore).
+
+Under a process group a DTensor leaf is gathered whole (``full_tensor``,
+a collective) on the calling thread, never in the writer thread, where it
+would race the step's collectives; rank 0 writes, and every rank leaves
+``save`` and ``wait`` only once the write is committed (a barrier).
 """
 from __future__ import annotations
 
@@ -25,16 +30,28 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..models.lm import tree_leaves, tree_map, tree_unflatten
+from ..distributed.sharding import full, place
+from ..models.lm import tree_leaves, tree_map, tree_unflatten, tree_zip
+
+
+def _grouped() -> bool:
+    return dist.is_initialized()
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    return not _grouped() or dist.get_rank() == 0
 
 
 def _host(x) -> np.ndarray:
     """A copy of ``x`` in host memory, which later in-place updates of
     ``x`` do not reach.  numpy has no bfloat16: a bf16 tensor keeps its
-    2-byte bits as ``|V2``, as the reference's file holds a bf16 leaf."""
+    2-byte bits as ``|V2``, as the reference's file holds a bf16 leaf.
+    A DTensor is gathered whole first (a collective on every rank)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().to("cpu", copy=True)
+        x = full(x).detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view("V2")
         return x.numpy()
@@ -64,12 +81,20 @@ class CheckpointManager:
 
     # ---------------- write path ----------------
     def save(self, step: int, tree, extra: Optional[Dict] = None) -> None:
-        self._write(step, _flatten(tree), extra or {})
+        arrays = _flatten(tree)
+        if _writer():
+            self._write(step, arrays, extra or {})
+        if _grouped():
+            dist.barrier()
 
     def save_async(self, step: int, tree,
                    extra: Optional[Dict] = None) -> None:
         self.wait()  # one outstanding write at a time
-        arrays = _flatten(tree)  # host copy happens here, synchronously
+        # host copy (and the gather of DTensor leaves) happens here,
+        # synchronously, on the calling thread
+        arrays = _flatten(tree)
+        if not _writer():
+            return
 
         def work():
             try:
@@ -81,9 +106,13 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self) -> None:
+        """Wait for the outstanding write; under a process group every
+        rank waits for rank 0's.  Raises the write's error."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _grouped():
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -141,3 +170,21 @@ class CheckpointManager:
         ``|V2`` leaf as bfloat16)."""
         host_tree, extra = self.restore(step, like_tree)
         return tree_map(lambda a: _tensor(a).to(device), host_tree), extra
+
+    def restore_sharded(self, step: int, like_tree,
+                        shardings) -> Tuple[Any, Dict]:
+        """``restore``, with every array placed by its ``NamedSharding`` in
+        ``shardings`` (``like_tree``'s structure) on that sharding's
+        ``DeviceMesh``: each rank reads the file and keeps its shards on
+        its own device, whatever mesh wrote it."""
+        host_tree, extra = self.restore(step, like_tree)
+        leaves = [place(_tensor(a).to(_device(s.mesh)), s)
+                  for a, s in tree_zip(host_tree, shardings)]
+        return tree_unflatten(like_tree, leaves), extra
+
+
+def _device(mesh) -> torch.device:
+    """This rank's device of the ``DeviceMesh`` ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

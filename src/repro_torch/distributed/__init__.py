@@ -1,1 +1,1 @@
-"""Sharding rules and int8 gradient compression, on one device."""
+"""Sharding rules, placement on a mesh, and int8 gradient compression."""

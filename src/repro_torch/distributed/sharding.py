@@ -1,4 +1,4 @@
-"""Logical-axis sharding rules (MaxText-style), planned on one device.
+"""Logical-axis sharding rules (MaxText-style), and tensors placed by them.
 
 Port of ``repro.distributed.sharding``.  Model code annotates every
 parameter with logical axis names (``models.lm.param_specs``); the rules
@@ -14,22 +14,27 @@ map logical names to mesh axes.  The reference's modes are kept:
 
 On torch the layout of a tensor is a ``PartitionSpec``: one entry per
 dimension, None or a mesh-axis name or a tuple of them, for a mesh of
-``launch.mesh``.  No process group and no DTensor are needed to plan one:
-``spec_to_pspec`` reads only the mesh's axis names and extents, so the
-reference's production meshes (16x16, 2x16x16) plan here as they do there.
+``launch.mesh`` (a frozen ``Mesh`` or a ``DeviceMesh``).  No process group
+is needed to plan one: ``spec_to_pspec`` reads only the mesh's axis names
+and extents, so the reference's production meshes (16x16, 2x16x16) plan
+here as they do there.
 
-``constrain`` and ``constrain_any`` pin activations to the active mesh in
-the reference.  The port runs on one device, where a sharding constraint
-moves nothing (the reference's ``with_sharding_constraint`` on one device
-moves nothing either), so both return ``x`` itself, inside
-``activation_sharding_ctx`` or not.
+On a ``DeviceMesh`` a layout places a tensor as a DTensor: ``placements``
+turns a ``PartitionSpec`` into one ``Shard``/``Replicate`` per mesh dim,
+``place`` and ``distribute`` put tensors and trees on the mesh.
+``constrain`` and ``constrain_any`` pin activations inside
+``activation_sharding_ctx`` as the reference's ``with_sharding_constraint``
+does: a DTensor is redistributed to the divisibility-gated spec.  On a
+plain tensor, or outside a context, both return ``x`` itself, so the
+one-device path is unchanged.  Inside the context plain tensors made by
+the model (positions, masks) mix with DTensors as replicated ones.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
-from ..launch.mesh import Mesh
+from ..launch.mesh import Mesh, as_mesh
 
 Spec = Tuple[Optional[str], ...]
 
@@ -113,33 +118,252 @@ P = PartitionSpec
 
 
 class NamedSharding(NamedTuple):
-    """A layout on a mesh (``jax.sharding.NamedSharding``)."""
-    mesh: Mesh
+    """A layout on a mesh (``jax.sharding.NamedSharding``).  On a
+    ``DeviceMesh`` it places tensors (``place``); on a ``Mesh`` it only
+    describes."""
+    mesh: Any
     spec: PartitionSpec
 
 
-def _mesh_axes(mesh: Mesh) -> Tuple[str, ...]:
-    return tuple(mesh.axis_names)
+def _mesh_axes(mesh) -> Tuple[str, ...]:
+    return tuple(as_mesh(mesh).axis_names)
+
+
+def placements(spec: PartitionSpec, dmesh) -> Tuple:
+    """``spec`` as DTensor placements on ``dmesh``: per mesh dim,
+    ``Shard(d)`` for the tensor dim whose entry names it, else
+    ``Replicate()``.  A tuple entry shards its dim over each of its axes,
+    major to minor as JAX does, which is DTensor's mesh-dim order; an
+    entry whose axes are out of that order raises ValueError.  A mesh dim
+    of extent 1 replicates: one device holds the whole dim either way,
+    and DTensor would refuse to reshape a dim it counts as split."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(dmesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{entry!r} is not in the mesh's order {names}")
+        for i in idx:
+            if dmesh.size(i) > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def place(x, sharding: NamedSharding):
+    """``x`` (a tensor on this rank's device, the same on every rank) as
+    a DTensor laid out by ``sharding``, whose mesh is a ``DeviceMesh``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, sharding.mesh,
+                             placements(sharding.spec, sharding.mesh))
+
+
+def distribute(tree, specs, dmesh, mode: str = "tp", like=None):
+    """Every leaf of ``tree`` placed on ``dmesh`` by its logical spec in
+    ``specs``, through ``shardings_for(..., like=)``: a mapping is taken
+    only where the mesh extent divides the dim, as the reference gates it.
+    ``like`` defaults to ``tree`` itself."""
+    rules = RULES[mode]
+
+    def one(spec, leaf, shaped):
+        return place(leaf, NamedSharding(dmesh, spec_to_pspec(
+            tuple(spec), rules, dmesh, dims=tuple(shaped.shape))))
+
+    return map_specs(one, specs, tree, tree if like is None else like)
+
+
+# --------------------------------------------------------------------------
+# Activation sharding constraints: model code calls ``constrain(x, spec)``
+# with logical names; the step factories install the active (mesh, mode).
+# --------------------------------------------------------------------------
+
+# the (mesh, mode) of the innermost context; a process-wide value, not a
+# thread-local one: autograd's device threads run the backward (and the
+# recomputed forward of a checkpointed layer) outside the caller's thread
+_ACTIVE: Dict[str, Any] = {"ctx": None}
 
 
 @contextlib.contextmanager
-def activation_sharding_ctx(mesh: Mesh, mode: str = "tp"):
-    """The reference's context that installs (mesh, mode) for
-    ``constrain``.  Kept for the reference's call sites; on one device
-    ``constrain`` reads neither, so it stores nothing."""
-    yield
+def activation_sharding_ctx(mesh, mode: str = "tp"):
+    """Install (mesh, mode) for ``constrain``: the reference's context.
+    On a ``DeviceMesh`` the model's DTensors are redistributed by it, and
+    plain tensors mix with them as replicated ones; on a ``Mesh``
+    description nothing is placed, so ``constrain`` has nothing to move;
+    with ``mesh`` None it installs nothing."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    if mesh is None:  # one device: nothing is placed
+        yield
+        return
+    prev, _ACTIVE["ctx"] = _ACTIVE["ctx"], (mesh, mode)
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _ACTIVE["ctx"] = prev
+
+
+def active():
+    """The (mesh, mode) installed by ``activation_sharding_ctx``, or
+    None."""
+    return _ACTIVE["ctx"]
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def full(x):
+    """``x`` whole on every rank: a DTensor gathered (a collective), any
+    other tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+# what the model runs over a mesh: the dense family, in these modes
+SHARDED_FAMILIES = ("dense",)
+SHARDED_MODES = ("tp", "dp")
+
+
+def check_sharded(cfg, mode: str) -> None:
+    """Raises ValueError unless the model runs ``cfg`` over a mesh in
+    ``mode``."""
+    if cfg.family not in SHARDED_FAMILIES or mode not in SHARDED_MODES:
+        raise ValueError(
+            f"the sharded path runs the {'/'.join(SHARDED_FAMILIES)} "
+            f"family in modes {'/'.join(SHARDED_MODES)}; not "
+            f"{cfg.name} ({cfg.family}) in mode {mode!r}")
+
+
+def _extent(mesh: Mesh, entry) -> int:
+    size = 1
+    for a in entry if isinstance(entry, tuple) else (entry,):
+        size *= mesh.shape[a]
+    return size
+
+
+def _padded(pspec, ndim: int) -> Tuple:
+    return tuple(pspec) + (None,) * (ndim - len(pspec))
+
+
+def _moved(x, pl):
+    """The DTensor ``x`` with placements ``pl`` on its own mesh (itself
+    if it already has them)."""
+    pl = tuple(pl)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def _whole_along(pl, dim: int) -> Tuple:
+    """``pl`` with every split of tensor dim ``dim`` replicated."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if p.is_shard(dim) else p for p in pl)
+
+
+def redistribute(x, pspec: PartitionSpec):
+    """The DTensor ``x`` laid out by ``pspec`` on its own mesh (itself if
+    it already is)."""
+    return _moved(x, placements(pspec, x.device_mesh))
 
 
 def constrain(x, spec: Spec):
-    """The reference's ``with_sharding_constraint`` by logical names, on
-    one device: ``x`` itself (nothing moves)."""
-    return x
+    """``with_sharding_constraint`` by logical axis names: a DTensor inside
+    ``activation_sharding_ctx`` is redistributed to the spec, each mapping
+    dropped where its mesh extent does not divide the dim (e.g. decode's
+    one-token sequence); anything else is returned as it is."""
+    ctx = active()
+    if ctx is None or not is_dtensor(x):
+        return x
+    mesh, mode = as_mesh(ctx[0]), ctx[1]
+    pspec = spec_to_pspec(tuple(spec), RULES[mode], mesh)
+    fixed = [e if e is None or dim % _extent(mesh, e) == 0 else None
+             for dim, e in zip(x.shape, _padded(pspec, x.ndim))]
+    return redistribute(x, P(*fixed))
 
 
 def constrain_any(x, specs: Sequence[Spec]):
-    """The reference's first-divisible-spec constraint, on one device:
-    ``x`` itself (nothing moves)."""
-    return x
+    """Apply the first logical spec whose every mapped axis divides the
+    corresponding dim and which shards something (e.g. attention heads
+    over 'model' when the head count divides, else the sequence); else
+    ``constrain`` by the last."""
+    ctx = active()
+    if ctx is None or not is_dtensor(x):
+        return x
+    mesh, mode = as_mesh(ctx[0]), ctx[1]
+    for spec in specs:
+        pspec = spec_to_pspec(tuple(spec), RULES[mode], mesh)
+        sizes = [(dim, _extent(mesh, e))
+                 for dim, e in zip(x.shape, _padded(pspec, x.ndim))
+                 if e is not None]
+        if all(dim % n == 0 for dim, n in sizes) and \
+                any(n > 1 for _, n in sizes):
+            return redistribute(x, pspec)
+    return constrain(x, specs[-1])
+
+
+def attention_pspecs(q_shape, kv_shape) -> Tuple[PartitionSpec,
+                                                 PartitionSpec]:
+    """The layouts the attention core runs in inside the active context,
+    for q (B, Sq, Hq, Dh) and k/v (B, Sk, Hkv, Dh): batch over the mode's
+    batch axes and heads over its 'heads' axes where both head counts
+    divide, so each rank's q heads see their own kv heads (GQA groups
+    stay whole).  The sequence is never split: attention is exact per
+    (batch, head), not per sequence shard.  Raises RuntimeError outside
+    ``activation_sharding_ctx``."""
+    if active() is None:
+        raise RuntimeError("DTensor attention runs inside "
+                           "activation_sharding_ctx")
+    mesh, mode = active()
+    mesh = as_mesh(mesh)
+    rules = RULES[mode]
+    q = spec_to_pspec(("batch", None, "heads", None), rules, mesh,
+                      dims=tuple(q_shape))
+    kv = spec_to_pspec(("batch", None, "kv", None), rules, mesh,
+                       dims=(q_shape[0],) + tuple(kv_shape[1:]))
+    if q[2] != kv[2]:
+        q, kv = P(q[0], None, None, None), P(kv[0], None, None, None)
+    return q, kv
+
+
+def local_offset(x, dim: int) -> int:
+    """Where this rank's shard of the DTensor ``x`` starts along ``dim``
+    (even shards, major to minor over the mesh dims that split it)."""
+    coord = x.device_mesh.get_coordinate()
+    size, off = x.shape[dim], 0
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard(dim):
+            size //= x.device_mesh.size(i)
+            off += coord[i] * size
+    return off
+
+
+def seq_replicated_like(upd, buf):
+    """The DTensor ``upd`` laid out as ``buf`` is, except that its dim 1
+    (the sequence being written) is whole on every rank."""
+    return _moved(upd, _whole_along(buf.placements, 1))
+
+
+def splittable(x, dim: int, parts: int):
+    """``x`` ready to split ``dim`` into (``parts``, rest): a DTensor whose
+    shards of ``dim`` do not hold whole parts (e.g. 2 kv heads' columns
+    over 4 ranks) has ``dim`` gathered first; anything else is ``x``."""
+    if not is_dtensor(x):
+        return x
+    dim %= x.ndim
+    n = 1
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard(dim):
+            n *= x.device_mesh.size(i)
+    return x if parts % n == 0 else _moved(x, _whole_along(x.placements,
+                                                           dim))
 
 
 def spec_to_pspec(spec: Spec, rules: Dict[str, Any], mesh: Mesh,
@@ -148,6 +372,7 @@ def spec_to_pspec(spec: Spec, rules: Dict[str, Any], mesh: Mesh,
     only taken if the mesh extent divides the dim — and the axis it would
     have used stays free for a later logical axis (e.g. a 60-layer stack
     can't shard 'layers' over 16, so 'embed' picks up 'data' instead)."""
+    mesh = as_mesh(mesh)
     axes = _mesh_axes(mesh)
     out = []
     used = set()
@@ -221,7 +446,7 @@ def shardings_for(specs, mesh: Mesh, mode: str = "tp", like=None):
 
 
 def batch_pspec(mesh: Mesh, extra_dims: int = 1) -> PartitionSpec:
-    axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+    axes = [a for a in ("pod", "data") if a in _mesh_axes(mesh)]
     return P(tuple(axes), *([None] * extra_dims))
 
 
@@ -240,8 +465,8 @@ def cache_sharding(cfg, mesh: Mesh, mode: str = "tp"):
 
     def shard_leaf(x):
         nd = x.ndim
-        axes = [a for a in ("pod", "data") if a in mesh.axis_names]
-        model = "model" if "model" in mesh.axis_names else None
+        axes = [a for a in ("pod", "data") if a in _mesh_axes(mesh)]
+        model = "model" if "model" in _mesh_axes(mesh) else None
         if nd == 0 or tuple(x.shape) == ():
             return NamedSharding(mesh, P())
         # stacked cache leaves: (L, B, ...) — batch axis second

@@ -1,14 +1,23 @@
-"""Batched serving on one device: prefill a batch of prompts,
-decode greedily.
+"""Batched serving, on one device or over a mesh: prefill a batch of
+prompts, decode greedily.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      --smoke --model-parallel 2 --mode tp [--device cpu]
 
 Port of ``repro.launch.serve``, with its flags plus ``--device`` (default
 ``cuda``; with no card and no ``--device cpu`` it raises), ``--json`` and
 ``--profile`` (on the card: one more run under ``torch.profiler``).
 Weights are drawn from ``torch.Generator().manual_seed(0)`` on the CPU, so
-every device serves the same model, and cast once to the compute dtype.
+every device and every rank serves the same model, and cast once to the
+compute dtype.  Under ``torch.distributed.run`` the ranks form a (data,
+model) mesh with 'model' = ``--model-parallel`` (which must divide them)
+and serve by ``--mode`` (``tp`` or ``dp``) through
+``serving.engine.make_serve_steps``; every rank decodes the same tokens
+and rank 0 prints and writes.  Without the launcher's environment the run
+is one process on one device.
 """
 from __future__ import annotations
 
@@ -25,8 +34,9 @@ from ..measure import device_name, device_time, resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
 from ..models.weights import cast_for_compute
-from ..serving.engine import make_serve_steps
-from .mesh import describe, make_elastic_mesh
+from ..serving.engine import make_serve_steps, place_cache
+from ..training.step import init_sharded
+from .mesh import describe, is_main, per_rank, run_launched, say
 
 VLM_EMBEDS = 8  # frontend embeddings a vlm prompt carries, as the reference
 
@@ -93,16 +103,21 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _greedy(cfg: ModelConfig, params, batch, gen: int, measure):
+def _greedy(cfg: ModelConfig, params, batch, gen: int, measure,
+            mesh=None, mode: str = "tp"):
     """Prefill ``batch`` and decode ``gen`` tokens greedily (the first from
     the prefill's logits, then ``gen - 1`` decode steps), each of the two
-    phases run by ``measure(fn)``.  Returns the tokens (B, gen) and what
-    ``measure`` returned for prefill and for decode."""
+    phases run by ``measure(fn)``.  Over the ``DeviceMesh`` ``mesh`` the
+    cache is placed by ``serving.engine.cache_shardings``.  Returns the
+    tokens (B, gen) and what ``measure`` returned for prefill and for
+    decode."""
     tokens = batch["tokens"]
     B, P = tokens.shape
     extra = batch["embeds"].shape[1] if "embeds" in batch else 0
-    prefill_step, decode_step = make_serve_steps(cfg)
+    prefill_step, decode_step = make_serve_steps(cfg, mesh, mode)
     cache = lm.init_cache(cfg, B, P + gen + extra, tokens.device)
+    if mesh is not None:
+        cache = place_cache(cfg, cache, mesh)
     out = []
 
     def prefill():
@@ -124,12 +139,12 @@ def _greedy(cfg: ModelConfig, params, batch, gen: int, measure):
     return torch.cat(out, dim=1).cpu().numpy(), pre, dec
 
 
-def generate(cfg: ModelConfig, params, batch, gen: int
-             ) -> Tuple[np.ndarray, Dict]:
+def generate(cfg: ModelConfig, params, batch, gen: int, mesh=None,
+             mode: str = "tp") -> Tuple[np.ndarray, Dict]:
     """The greedy run, timed: prefill ends when its logits are ready,
     decode when the last token is; on CUDA the peak of allocated memory
-    over the run (weights included) is read too.  Returns the tokens (B,
-    gen) and the times."""
+    over the run (weights included) is read too.  ``mesh``/``mode`` as
+    for ``_greedy``.  Returns the tokens (B, gen) and the times."""
     dev = batch["tokens"].device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -141,7 +156,8 @@ def generate(cfg: ModelConfig, params, batch, gen: int
         _sync(dev)
         return time.perf_counter() - t0
 
-    toks, t_prefill, t_decode = _greedy(cfg, params, batch, gen, wall)
+    toks, t_prefill, t_decode = _greedy(cfg, params, batch, gen, wall,
+                                        mesh, mode)
     B, steps = toks.shape[0], gen - 1
     return toks, {
         "device": device_name(dev), "prefill_ms": t_prefill * 1e3,
@@ -152,11 +168,12 @@ def generate(cfg: ModelConfig, params, batch, gen: int
                        if dev.type == "cuda" else None)}
 
 
-def profile_run(cfg: ModelConfig, params, batch, gen: int) -> Dict:
+def profile_run(cfg: ModelConfig, params, batch, gen: int, mesh=None,
+                mode: str = "tp") -> Dict:
     """One more greedy run, each phase under ``torch.profiler``: what the
     card did in prefill and in a decode step, and its busy share of their
     wall time."""
-    _, pre, dec = _greedy(cfg, params, batch, gen, device_time)
+    _, pre, dec = _greedy(cfg, params, batch, gen, device_time, mesh, mode)
     steps = max(gen - 1, 1)
     return {"prefill": pre, "decode": dec, "decode_per_step": {
         "activities": dec["activities"] / steps,
@@ -173,10 +190,10 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--mode", default="tp",
-                    help="the reference's sharding mode; one device has "
-                    "no sharding, so it changes nothing")
+                    help="the reference's sharding mode over the ranks of "
+                    "a torch.distributed.run launch: tp or dp")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="must be 1: the port serves from one device")
+                    help="the mesh's 'model' extent; must divide the ranks")
     ap.add_argument("--map-service", action="store_true",
                     help="plan the decode tiling online: query the mapping "
                     "service (repro_torch.serve_map) at every decode step's "
@@ -194,44 +211,53 @@ def main(argv=None):
                     "under torch.profiler and report the card's activities "
                     "and busy share (needs the card)")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise ValueError(f"--model-parallel {args.model_parallel}: the port "
-                         f"serves from one device")
     dev = resolve_device(args.device)
     if args.profile and dev.type != "cuda":
         raise ValueError("--profile reads the card's activities: it needs "
                          "--device cuda")
+    return run_launched(args.model_parallel, dev,
+                        lambda d, mesh, dmesh: _run(args, d, mesh, dmesh))
 
+
+def _run(args, dev, mesh, dmesh):
+    """The run on ``dev``; over the ``DeviceMesh`` ``dmesh`` when one is
+    given (``mesh`` describes it), else on ``dev`` alone."""
     cfg = get_config(args.arch, smoke=args.smoke)
-    # the mesh of the one device this run serves from
-    print(describe(make_elastic_mesh(target_model=args.model_parallel,
-                                     devs=[dev])))
+    say(describe(mesh))
     B, P, G = args.batch, args.prompt_len, args.gen
     plan: Optional[Dict] = None
-    if args.map_service:
+    if args.map_service and is_main():
         plan = _plan_decode_mappings(cfg, B, P, G, args.map_deadline_ms / 1e3)
 
-    params = cast_for_compute(
-        cfg, lm.init(cfg, torch.Generator().manual_seed(0), dev))
+    if dmesh is None:
+        params = lm.init(cfg, torch.Generator().manual_seed(0), dev)
+    else:
+        params = init_sharded(cfg, None, dmesh, args.mode, device=dev)[0]
+    params = cast_for_compute(cfg, params)
     batch = make_batch(cfg, B, P, dev)
-    gen, stats = generate(cfg, params, batch, G)
-    prof = profile_run(cfg, params, batch, G) if args.profile else None
+    gen, stats = generate(cfg, params, batch, G, dmesh, args.mode)
+    prof = (profile_run(cfg, params, batch, G, dmesh, args.mode)
+            if args.profile else None)
+    peaks = per_rank(stats["peak_bytes"])
 
-    print(f"prefill {B}x{P}: {stats['prefill_ms']:.0f}ms  "
+    say(f"prefill {B}x{P}: {stats['prefill_ms']:.0f}ms  "
           f"decode {G-1} steps: {stats['decode_ms']:.0f}ms "
           f"({stats['tok_s']:.1f} tok/s)")
-    print("sample:", gen[0][:16])
-    print(f"device: {stats['device']}")
+    say("sample:", gen[0][:16])
+    say(f"device: {stats['device']}")
     if prof is not None:
         pre, d = prof["prefill"], prof["decode_per_step"]
-        print(f"profile: prefill {pre['activities']} device activities, "
+        say(f"profile: prefill {pre['activities']} device activities, "
               f"busy {pre['device_ms']} of {pre['wall_ms']:.3f} ms; decode "
               f"{d['activities']:.0f} a step, busy {d['device_ms']} of "
               f"{d['wall_ms']:.3f} ms")
-    if args.json:
+    if args.json and is_main():
         with open(args.json, "w") as f:
             json.dump({"arch": cfg.name, "batch": B, "prompt_len": P,
-                       "gen": G, "dtype": cfg.dtype, **stats,
+                       "gen": G, "dtype": cfg.dtype, "mesh": mesh.shape,
+                       "mode": args.mode if dmesh is not None else None,
+                       "tokens": gen.tolist(), "peak_bytes_per_rank": peaks,
+                       **stats,
                        "map_service": plan, "profile": prof}, f, indent=1)
     return gen
 

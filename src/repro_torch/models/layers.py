@@ -6,8 +6,11 @@ across leaf for leaf (``models.weights.params_from_numpy``).  Where the
 port differs:
 
 - parameter creators draw from a ``torch.Generator`` (``jax.random`` cannot
-  be reproduced) and return the parameters only: the reference's sharding
-  specs have no meaning on one device;
+  be reproduced) and return the parameters only: their sharding specs
+  come from ``models.lm.param_specs``;
+- over a mesh the parameters and activations are DTensors: the
+  ``constrain`` calls redistribute them, and the attention core runs per
+  rank (``_attend``);
 - ``flash_attention``'s ``custom_vjp`` is a ``torch.autograd.Function``
   (``_Flash``) with the same manual backward (reference ``:158-239``);
 - a KV cache holds its fill index ``idx`` as a host int, not a 0-d device
@@ -20,12 +23,14 @@ cast (``models.weights.cast_for_compute``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding
 from ..distributed.sharding import constrain, constrain_any
 
 Params = Dict
@@ -259,9 +264,37 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.reshape(B, nq * q_chunk, Hq, Dh)[:, :Sq]
 
 
+def _attend(q, k, v, **kw):
+    """``flash_attention(q, k, v, **kw)``.  On DTensors it runs per rank
+    under ``local_map``, on the layouts of ``sharding.attention_pspecs``:
+    attention is independent per (batch, head), so each rank's result is
+    exact, and a sequence sharded by ``act_seq`` is gathered first."""
+    if not sharding.is_dtensor(q):
+        return flash_attention(q, k, v, **kw)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    qs, kvs = sharding.attention_pspecs(q.shape, k.shape)
+    qp, kvp = sharding.placements(qs, mesh), sharding.placements(kvs, mesh)
+    core = local_map(functools.partial(flash_attention, **kw),
+                     out_placements=list(qp), in_placements=(qp, kvp, kvp),
+                     device_mesh=mesh, redistribute_inputs=True)
+    return core(q, k, v)
+
+
+def _whole_seq(x):
+    """``x`` (B, S, d) with its sequence whole on every rank before a
+    projection: the all-gather that ends sequence parallelism (GSPMD
+    inserts it for the reference), so a product never flattens a split
+    sequence into its rows.  A plain tensor is ``x`` itself."""
+    return constrain(x, ("batch", None, None))
+
+
 def _qkv(cfg, p: Params, x, src):
     B, S, _ = x.shape
     dt = cfg.torch_dtype
+    x = _whole_seq(x)
+    src = x if src is None else _whole_seq(src)
     q = x @ p["wq"].to(dt)
     k = src @ p["wk"].to(dt)
     v = src @ p["wv"].to(dt)
@@ -270,6 +303,9 @@ def _qkv(cfg, p: Params, x, src):
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     Sk = src.shape[1]
+    q = sharding.splittable(q, -1, cfg.n_heads)
+    k = sharding.splittable(k, -1, cfg.n_kv_heads)
+    v = sharding.splittable(v, -1, cfg.n_kv_heads)
     q = constrain_any(q.reshape(B, S, cfg.n_heads, cfg.d_head),
                       [("batch", None, "heads", None),
                        ("batch", "act_seq", None, None)])
@@ -285,8 +321,20 @@ def _qkv(cfg, p: Params, x, src):
 def update_slice(buf: torch.Tensor, upd: torch.Tensor,
                  start: int) -> torch.Tensor:
     """``lax.dynamic_update_slice(buf, upd, (0, start, ...))`` in place: the
-    start is clamped so that the update fits, as XLA clamps it."""
+    start is clamped so that the update fits, as XLA clamps it.  A DTensor
+    ``buf`` is written on each rank's own shard: ``upd`` is laid out as
+    ``buf`` is first, and a sequence sharded over ranks takes the rows
+    that fall in each rank's range."""
     start = min(max(start, 0), buf.shape[1] - upd.shape[1])
+    if sharding.is_dtensor(buf):
+        upd = sharding.seq_replicated_like(upd, buf).to_local()
+        local = buf.to_local()
+        lo = sharding.local_offset(buf, 1)
+        a = max(start, lo)
+        b = min(start + upd.shape[1], lo + local.shape[1])
+        if a < b:
+            local[:, a - lo:b - lo] = upd[:, a - start:b - start]
+        return buf
     buf[:, start:start + upd.shape[1]] = upd
     return buf
 
@@ -304,17 +352,17 @@ def attention_block(cfg, p: Params, x, positions, *, cache=None,
     """
     B, S, _ = x.shape
     dt = cfg.torch_dtype
-    q, k, v = _qkv(cfg, p, x, x if kv_from is None else kv_from)
+    q, k, v = _qkv(cfg, p, x, kv_from)
 
     if kv_from is not None:
-        out = flash_attention(q, k, v, causal=False)
+        out = _attend(q, k, v, causal=False)
         return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt), None
 
     new_cache = None
     if cache is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        out = flash_attention(q, k, v, causal=causal, window=window)
+        out = _attend(q, k, v, causal=causal, window=window)
     else:
         idx = cache["idx"]
         ck, cv = cache["k"], cache["v"]
@@ -328,14 +376,14 @@ def attention_block(cfg, p: Params, x, positions, *, cache=None,
                 slot = idx % window
                 update_slice(ck, k.to(dt), slot)
                 update_slice(cv, v.to(dt), slot)
-                out = flash_attention(q, ck, cv, causal=False,
-                                      kv_valid=min(idx + 1, window))
+                out = _attend(q, ck, cv, causal=False,
+                              kv_valid=min(idx + 1, window))
             else:
                 # windowed prefill: compute without the cache, then stash
                 # the last `window` roped K/V at their ring slots
                 assert S >= window, "prefill shorter than window"
-                out = flash_attention(q, k, v, causal=True, window=window,
-                                      q_offset=0)
+                out = _attend(q, k, v, causal=True, window=window,
+                              q_offset=0)
                 last = torch.arange(S - window, S, device=x.device)
                 slots = last % window
                 ck.zero_()[:, slots] = k[:, last].to(dt)
@@ -343,11 +391,13 @@ def attention_block(cfg, p: Params, x, positions, *, cache=None,
         else:
             update_slice(ck, k.to(dt), idx)
             update_slice(cv, v.to(dt), idx)
-            out = flash_attention(q, ck, cv, causal=True, window=window,
-                                  q_offset=idx, kv_valid=idx + S)
+            out = _attend(q, ck, cv, causal=True, window=window,
+                          q_offset=idx, kv_valid=idx + S)
         new_cache = {"k": ck, "v": cv, "idx": idx + S}
     out = out.reshape(B, S, cfg.q_dim)
-    return out @ p["wo"].to(dt), new_cache
+    # the MLP's output layout: the partial sums reduced, and the gradient
+    # back through this product arrives with a whole sequence
+    return constrain(out @ p["wo"].to(dt), ("batch", None, None)), new_cache
 
 
 def cross_attention_cached(cfg, p: Params, x, ck, cv):
@@ -358,7 +408,7 @@ def cross_attention_cached(cfg, p: Params, x, ck, cv):
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
     q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
-    out = flash_attention(q, ck, cv, causal=False)
+    out = _attend(q, ck, cv, causal=False)
     return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt)
 
 
@@ -390,6 +440,7 @@ def mlp_params(cfg, gen: torch.Generator) -> Params:
 
 def mlp(cfg, p: Params, x):
     dt = cfg.torch_dtype
+    x = _whole_seq(x)
     g = F.silu(constrain(x @ p["wg"].to(dt), ("batch", None, "mlp")))
     u = constrain(x @ p["wu"].to(dt), ("batch", None, "mlp"))
     return constrain((g * u) @ p["wd"].to(dt), ("batch", None, None))

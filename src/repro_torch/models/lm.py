@@ -34,11 +34,12 @@ import math
 from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.sharding import constrain
 from .config import ModelConfig
-from .layers import (_init, attention_block, attention_params,
+from .layers import (_init, _whole_seq, attention_block, attention_params,
                      cross_attention_cached, cross_kv, embedding_params, mlp,
                      mlp_params, moe, moe_params, rmsnorm, rmsnorm_params,
                      weak_scalar)
@@ -349,13 +350,15 @@ def _apply_group(cfg, kinds, count, group_params, x, positions,
 
 def _embed(cfg, params, tokens):
     dt = cfg.torch_dtype
-    e = params["embed"]["tok"][tokens].to(dt)
+    # ``F.embedding``, not indexing: a vocab-sharded table is looked up
+    # per rank and summed, never gathered
+    e = F.embedding(tokens, params["embed"]["tok"]).to(dt)
     return constrain(e * weak_scalar(math.sqrt(cfg.d_model), dt),
                      ("batch", "act_seq", None))
 
 
 def _head(cfg, params, x):
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = _whole_seq(rmsnorm(params["final_norm"], x, cfg.norm_eps))
     if cfg.tie_embeddings:
         w = params["embed"]["tok"].to(cfg.torch_dtype).T
     else:

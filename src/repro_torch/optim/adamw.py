@@ -8,7 +8,10 @@ layout (``{"m", "v", "step"}`` or ``{"f", "step"}``, ``step`` a 0-d int32
 tensor), so a checkpoint of either package restores in the other.  The
 update runs on the parameters' device, in f32 as the reference computes
 it, and writes parameters and state in place under ``torch.no_grad()``:
-that takes the place of the reference's donated buffers.
+that takes the place of the reference's donated buffers.  Over a mesh the
+leaves are DTensors laid out by ``opt_state_specs`` beside the
+parameters; every update is elementwise on each rank's shard, and the
+global norm sums each whole tensor across its shards.
 """
 from __future__ import annotations
 

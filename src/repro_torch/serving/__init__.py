@@ -1,1 +1,1 @@
-"""Serving steps on one device."""
+"""Serving steps, on one device or over a mesh."""

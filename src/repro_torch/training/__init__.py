@@ -1,1 +1,1 @@
-"""The train step on one device."""
+"""The train step, on one device or over a mesh."""

@@ -1,13 +1,18 @@
-"""The train step on one device.
+"""The train step, on one device or over a mesh.
 
 Port of ``repro.training.step``.  ``make_train_step`` returns a step that
 moves a numpy batch to the parameters' device, takes the gradient of the
 loss (of the mean of the microbatch losses, with ``microbatches`` > 1) and
 updates parameters and optimizer state in place, which takes the place of
-the reference's donated buffers.  ``init`` is the twin of ``init_sharded``.
-The reference's shardings (``in_shardings``, ``out_shardings``, the
-gradient constraint, the activation-sharding context) have no meaning on
-one device and are not ported.
+the reference's donated buffers.
+
+Over a ``DeviceMesh`` (``mesh=``) the parameters and the optimizer state
+are DTensors placed by ``init_sharded`` (the reference's ``shardings_for``
+layouts), each microbatch is split over ('pod', 'data') by ``batch_pspec``,
+the loss and its gradient run inside ``activation_sharding_ctx``, and each
+gradient is redistributed to its parameter's placements before the update
+(the reference's gradient constraint: an all-reduce or reduce-scatter of
+the partial sums).  ``init`` is the one-device twin of ``init_sharded``.
 """
 from __future__ import annotations
 
@@ -16,10 +21,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import (NamedSharding, activation_sharding_ctx,
+                                    batch_pspec, check_sharded, distribute,
+                                    full, place)
 from ..models import lm
 from ..models.config import ModelConfig
-from ..optim.adamw import OptConfig, apply_updates, init_opt_state
-
+from ..optim.adamw import (OptConfig, apply_updates, init_opt_state,
+                           opt_state_specs)
 
 def _to_device(batch: Dict[str, np.ndarray],
                device) -> Dict[str, torch.Tensor]:
@@ -34,13 +42,25 @@ def _to_device(batch: Dict[str, np.ndarray],
     return {k: one(v) for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1):
+def _place_batch(batch: Dict[str, torch.Tensor], mesh):
+    """Each array split over ('pod', 'data') on ``mesh`` (the reference's
+    ``batch_pspec``)."""
+    return {k: place(v, NamedSharding(mesh, batch_pspec(mesh, v.ndim - 1)))
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1,
+                    mesh=None, mode: str = "tp"):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``; the metrics are 0-d f32 tensors on the
-    device.  The batch's leading axis splits into ``microbatches`` equal
-    parts; the loss is their losses' mean, as the reference's scan sums
-    them and divides, and its gradient the sum of each part's gradient
-    divided by their count."""
+    device, plain (the same on every rank) over a mesh.  The batch's
+    leading axis splits into ``microbatches`` equal parts; the loss is
+    their losses' mean, as the reference's scan sums them and divides,
+    and its gradient the sum of each part's gradient divided by their
+    count.  ``mesh`` is a ``DeviceMesh`` over which the parameters and the
+    state are placed (``init_sharded``), or None for one device."""
+    if mesh is not None:
+        check_sharded(cfg, mode)
 
     def train_step(params, opt_state, batch):
         leaves = lm.tree_leaves(params)
@@ -55,17 +75,25 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1):
         total, grads = 0.0, None
         for i in range(microbatches):
             part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            loss = lm.loss_fn(cfg, params, part)[0]
-            g = torch.autograd.grad(loss / microbatches, leaves,
-                                    allow_unused=True)
+            if mesh is not None:
+                part = _place_batch(part, mesh)
+            with activation_sharding_ctx(mesh, mode):
+                loss = lm.loss_fn(cfg, params, part)[0]
+                g = torch.autograd.grad(loss / microbatches, leaves,
+                                        allow_unused=True)
             g = [torch.zeros_like(p) if x is None else x
                  for p, x in zip(leaves, g)]
             grads = g if grads is None else [a + b for a, b in zip(grads, g)]
             total = total + loss.detach()
+        if mesh is not None:
+            # the reference's constraint of each gradient to its
+            # parameter's layout: the partial sums are reduced here
+            grads = [x.redistribute(p.device_mesh, p.placements)
+                     for p, x in zip(leaves, grads)]
         params, opt_state, gnorm = apply_updates(
             oc, params, lm.tree_unflatten(params, grads), opt_state)
-        metrics = {"loss": (total / microbatches).float(),
-                   "grad_norm": gnorm.float()}
+        metrics = {"loss": full(total / microbatches).float(),
+                   "grad_norm": full(gnorm).float()}
         return params, opt_state, metrics
 
     return train_step
@@ -78,3 +106,25 @@ def init(cfg: ModelConfig, oc: Optional[OptConfig], device,
     optimizer state beside them (None without ``oc``)."""
     params = lm.init(cfg, torch.Generator().manual_seed(seed), device)
     return params, None if oc is None else init_opt_state(oc, params)
+
+
+def init_sharded(cfg: ModelConfig, oc: Optional[OptConfig], mesh,
+                 mode: str = "tp", seed: int = 0, device=None):
+    """``init``'s parameters and optimizer state (None without ``oc``),
+    placed on the ``DeviceMesh`` ``mesh`` by the reference's layouts:
+    ``shardings_for(param_specs, like=params)`` and
+    ``opt_state_specs``.  Every rank draws the same parameters on the CPU
+    and keeps its shards on ``device`` (default the mesh's device, e.g.
+    ``cuda:LOCAL_RANK``).  Returns (params, specs, opt_state), the
+    reference's ``init_sharded``."""
+    check_sharded(cfg, mode)
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else torch.device("cpu"))
+    params, opt_state = init(cfg, oc, device, seed)
+    specs = lm.param_specs(cfg)
+    params = distribute(params, specs, mesh, mode)
+    if opt_state is not None:
+        opt_state = distribute(opt_state, opt_state_specs(oc, specs), mesh,
+                               mode)
+    return params, specs, opt_state

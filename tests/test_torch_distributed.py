@@ -10,6 +10,7 @@ twins of ``tests/test_extras.py``'s compression tests.
 from __future__ import annotations
 
 import functools
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -203,12 +204,34 @@ def test_spec_to_pspec_gates_by_divisibility_like_the_reference():
     assert sharding.RULES == ref_sh.RULES
 
 
-def test_constrain_is_the_identity_inside_a_context():
+def test_constrain_is_the_identity_inside_a_context(group_of_one):
+    """A plain tensor passes through; a DTensor is redistributed to the
+    spec (on a 1x1 mesh every placement is ``Replicate``, so a tensor
+    placed as ``Shard(0)`` moves), and outside a context it stays."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
     x = torch.randn(2, 3)
     pm, _ = _meshes("pod")
     with sharding.activation_sharding_ctx(pm, "tp_fsdp"):
         assert sharding.constrain(x, ("batch", None)) is x
         assert sharding.constrain_any(x, [("batch", None)]) is x
+    dm = port_mesh.device_mesh(port_mesh.Mesh(("data", "model"), (1, 1)),
+                               "cpu")
+    d = distribute_tensor(x, dm, [Shard(0), Replicate()])
+    assert sharding.constrain(d, ("batch", None)) is d
+    with sharding.activation_sharding_ctx(dm, "tp"):
+        # autograd's device threads see the context too
+        seen = []
+        t = threading.Thread(target=lambda: seen.append(sharding.active()))
+        t.start()
+        t.join(10)
+        assert not t.is_alive() and seen == [(dm, "tp")]
+        for y in (sharding.constrain(d, ("batch", None)),
+                  sharding.constrain_any(d, [("batch", None)])):
+            assert tuple(y.placements) == (Replicate(), Replicate())
+            assert torch.equal(y.full_tensor(), x)
+        y = sharding.constrain(y, ("batch", None))
+        assert sharding.constrain(y, ("batch", None)) is y
 
 
 # --------------------------------------------------------------------------

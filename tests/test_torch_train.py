@@ -419,7 +419,10 @@ def test_train_cli_preemption_checkpoints_and_exits(tmp_path, monkeypatch,
 
 
 def test_train_cli_refusals():
-    with pytest.raises(ValueError, match="one device"):
+    """A process started alone is one device: ``--model-parallel 2``
+    fails and names the launcher that gives it ranks."""
+    with pytest.raises(ValueError, match="does not divide one device.*"
+                       "torch.distributed.run"):
         train_mod.main(CLI + ["--model-parallel", "2"])
     with pytest.raises(ValueError, match="--device cuda"):
         train_mod.main(CLI + ["--profile"])
