@@ -95,23 +95,35 @@ Phases (each prints its own lines; any failure exits nonzero):
      layouts; torch ops, no kernel of this repo): children of
      ``torch.distributed.run --standalone`` with NCCL over every card
      train phase 6's bf16 8 x 1024 for 3 steps in ``--mode dp`` (the
-     reference's mode for this arch) and ``tp``, and serve phase 5's
-     8 x 1024 + 32; the losses and grad norms are held against phase 6's
-     first steps at the bf16 tolerance, the greedy tokens against phase
-     5's (equal).  On one card the mesh is 1x1 and ``--model-parallel 2``
-     must fail; with two or more, a 2-way run is held the same way, its
-     tokens by the first of each sequence (bf16 partial sums are reduced
-     across cards, so later tokens may part) and their equal share.  One
-     JSON line {"sharded": {...}}: step, prefill and decode ms beside the
-     one-device run's, each rank's peak memory;
+     reference's mode for this arch), ``tp`` and ``tp_fsdp``, and serve
+     phase 5's 8 x 1024 + 32 in ``tp`` and ``tp_fsdp``; the losses and
+     grad norms are held against phase 6's first steps at the bf16
+     tolerance, the greedy tokens against phase 5's (equal).  On one card
+     the mesh is 1x1 and ``--model-parallel 2`` must fail; with two or
+     more, a 2-way run is held the same way, its tokens by the first of
+     each sequence (bf16 partial sums are reduced across cards, so later
+     tokens may part) and their equal share.  One JSON line {"sharded":
+     {...}}: step, prefill and decode ms beside the one-device run's,
+     each rank's peak memory.  Then phi3.5-moe at full width and 2 of its
+     32 layers, through the library in children of this script (``--moe``
+     under ``torch.distributed.run``): bf16 8 x 1024 + 32 served and 3
+     steps of 8 x 1024 trained one-device, then in ``tp_ep`` and
+     ``tp_fsdp`` on the 1x1 mesh, held against the one-device run (losses
+     and grad norms at the bf16 tolerance, the first token of each
+     sequence equal); one JSON line {"sharded_moe": {...}};
   10. one JSON line with each kernel's launches on the main path (phase 3),
      error and times;
   11. the last line: {"ok": true, "device": {...}}.
 
 Needs torch with CUDA, nvcc and one card; it fails without them.
-``python3 chip_smoke.py --sharded`` runs phase 9 alone (over every card
-the machine shows), after one-device runs of ``launch.train`` and
-``launch.serve`` at phase 6's and phase 5's shapes to hold it against.
+``python3 chip_smoke.py --sharded`` runs phase 9's qwen runs alone (over
+every card the machine shows), after one-device runs of ``launch.train``
+and ``launch.serve`` at phase 6's and phase 5's shapes to hold them
+against, then the runs that need 4 cards (``phase_wide``): minitron-8b at
+full width trained (3 steps of bf16 8 x 1024) and served (8 x 1024 + 32)
+in ``tp_fsdp`` on (2, 2) against ``tp`` on (1, 4), and phi3.5-moe at 4
+layers in ``tp_ep`` on (2, 2) against ``tp`` on (1, 4), with each rank's
+peak memory and step times; one JSON line {"sharded_wide": {...}}.
 """
 from __future__ import annotations
 
@@ -176,7 +188,10 @@ from repro_torch.serve_map.measure import (  # noqa: E402
 from repro_torch.optim.adamw import (OptConfig, apply_updates,  # noqa
                                      init_opt_state)
 from repro_torch.serving.engine import make_serve_steps  # noqa: E402
-from repro_torch.training.step import init, make_train_step  # noqa: E402
+from repro_torch.training.step import (init, init_sharded,  # noqa: E402
+                                       make_train_step)
+from repro_torch.launch.mesh import is_main, per_rank, run_launched  # noqa
+from repro_torch.models.weights import cast_for_compute  # noqa: E402
 
 # H100 SXM datasheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -1414,31 +1429,53 @@ def phase_tools() -> None:
 # torch.distributed.run over every card (NCCL), at phase 6's and phase 5's
 # shapes; the reference's mode for this arch (dry-run MODE_OVERRIDES) first
 SHARDED_TRAIN_STEPS = 3
-SHARDED_MODES = ("dp", "tp")
+SHARDED_MODES = ("dp", "tp", "tp_fsdp")
+SHARDED_SERVE_MODES = ("tp", "tp_fsdp")
 SHARDED_TIMEOUT_S = 300  # each child launch
 # the sharded run against the one-device run on the same card, in bf16:
 # the losses within phase 6's bf16 tolerance, the greedy tokens equal (the
 # first of each sequence where 'model' > 1; see sharded_serve)
 SHARDED_LOSS_RTOL = FA_GRAD_TOL[torch.bfloat16]
+QWEN = "qwen1.5-0.5b"
+# the MoE over a mesh: phi3.5-moe at full width, cut in depth, through the
+# library in children of this script (``--moe``; the launchers take no
+# depth): on one card 2 of its 32 layers (~2.86 G parameters, ~46 GB of
+# f32 training state) one-device and in MOE_MODES on the 1x1 mesh
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 2
+MOE_MODES = ("tp_ep", "tp_fsdp")
+# ``--sharded`` on 4 cards: minitron-8b at full width (~9.88 G parameters,
+# whose f32 training state one card cannot hold) in tp_fsdp on (2, 2)
+# against tp on (1, 4), trained and served; phi3.5-moe at 4 layers in
+# tp_ep on (2, 2) against tp on (1, 4).  No checkpoint: the manager
+# gathers every leaf whole onto rank 0.
+WIDE_ARCH = "minitron-8b"
+WIDE_RUNS = (("tp", 4), ("tp_fsdp", 2))  # (mode, 'model'); baseline first
+WIDE_MOE_LAYERS = 4
+WIDE_MOE_RUNS = (("tp", 4), ("tp_ep", 2))
+WIDE_CARDS = 4
+WIDE_TIMEOUT_S = 900  # each wide child: every rank draws the whole model
 
 
-def launch(module: str, nproc: int, args: list, cwd: str) -> tuple:
+def launch(target: list, nproc: int, args: list, cwd: str,
+           timeout: int = SHARDED_TIMEOUT_S) -> tuple:
     """``python -m torch.distributed.run --standalone --nproc-per-node
-    nproc -m module args`` in ``cwd``, killed with its ranks at
-    ``SHARDED_TIMEOUT_S``: (exit code, output tail, seconds)."""
+    nproc target args`` in ``cwd`` (``target``: ``["-m", module]`` or a
+    script), killed with its ranks at ``timeout``: (exit code, output
+    tail, seconds)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(nproc), "-m", module, *args]
+           "--nproc-per-node", str(nproc), *target, *args]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=SHARDED_TIMEOUT_S)
+        out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         out, _ = proc.communicate()
-        out += f"\n(killed at {SHARDED_TIMEOUT_S} s)"
+        out += f"\n(killed at {timeout} s)"
     return proc.returncode, out, time.perf_counter() - t0
 
 
@@ -1449,102 +1486,115 @@ def failure(rc: int, out: str) -> str:
     return f"exit {rc}: " + " | ".join(lines[-6:])[-2000:]
 
 
-def sharded_train(tmp: str, nproc: int, mp: int, mode: str,
-                  one: dict) -> dict:
-    """``launch.train`` over ``nproc`` ranks, 'model' = ``mp``, held
-    against the one-device run's first steps."""
-    B, S = TRAIN[:2]
-    path = os.path.join(tmp, f"train_{nproc}_{mp}_{mode}.json")
-    rc, out, secs = launch("repro_torch.launch.train", nproc, [
-        "--arch", "qwen1.5-0.5b", "--global-batch", str(B), "--seq-len",
-        str(S), "--steps", str(SHARDED_TRAIN_STEPS), "--mode", mode,
-        "--model-parallel", str(mp), "--log-every", "1", "--json", path],
-        tmp)
-    rep = json.load(open(path)) if rc == 0 and os.path.exists(path) else None
+def gib(peaks: list) -> list:
+    return [p / 2**30 for p in peaks]
+
+
+def held_train(label: str, rep: dict, base: dict, held: str) -> dict:
+    """``rep``'s 3 steps held against ``base``'s first ones (losses and
+    grad norms at ``SHARDED_LOSS_RTOL``), checked and summarized."""
     n = SHARDED_TRAIN_STEPS
-    if rep is None:
-        check(f"sharded train, {nproc} rank(s), model={mp}, --mode {mode}",
-              False, failure(rc, out))
-        return {"exit": rc}
-    # like for like: phase 6's steps after the first and before its first
-    # checkpoint write (the children write none)
-    one_ms = statistics.median(one["step_ms"][1:n])
-    rel = [abs(a / b - 1) for a, b in zip(rep["loss"], one["loss"][:n])]
+    # like for like: the steps after the first (which pays DTensor's
+    # planning) and before any checkpoint write
+    base_ms = statistics.median(base["step_ms"][1:n])
+    rel = [abs(a / b - 1) for a, b in zip(rep["loss"], base["loss"][:n])]
     grel = [abs(a / b - 1) for a, b in zip(rep["grad_norm"],
-                                             one["grad_norm"][:n])]
-    check(f"sharded train {B}x{S}, {nproc} rank(s), mesh {rep['mesh']}, "
-          f"--mode {mode}: losses and grad norms against the one-device run",
-          len(rel) == n and max(rel + grel) <= SHARDED_LOSS_RTOL
-          and rep["mode"] == mode,
+                                             base["grad_norm"][:n])]
+    ok = len(rel) == n and max(rel + grel) <= SHARDED_LOSS_RTOL
+    check(f"{label}: losses and grad norms against {held}", ok,
           f"loss {rep['loss']}, max rel diff loss {max(rel):.3g}, grad norm "
           f"{max(grel):.3g} (tol {SHARDED_LOSS_RTOL}); step "
-          f"{rep['step_ms_median']:.1f} ms (one device {one_ms:.1f}); peak "
-          f"per rank "
-          f"{[p / 2**30 for p in rep['peak_bytes_per_rank']]} GiB; child "
-          f"{secs:.1f} s")
-    return {"nproc": nproc, "model_parallel": mp, "mode": mode,
-            "mesh": rep["mesh"], "loss": rep["loss"],
-            "grad_norm": rep["grad_norm"], "loss_max_rel_diff": max(rel),
+          f"{rep['step_ms_median']:.1f} ms ({held} {base_ms:.1f}); first "
+          f"step {rep['step_ms'][0]:.1f} ms; peak per rank "
+          f"{gib(rep['peak_bytes_per_rank'])} GiB")
+    return {"mesh": rep["mesh"], "mode": rep["mode"], "held_against": held,
+            "loss": rep["loss"], "grad_norm": rep["grad_norm"],
+            "loss_max_rel_diff": max(rel),
             "grad_norm_max_rel_diff": max(grel), "step_ms": rep["step_ms"],
             "step_ms_median": rep["step_ms_median"],
-            "one_device_step_ms_median": one_ms,
-            "host_overhead_ms": rep["step_ms_median"] - one_ms,
-            "peak_bytes_per_rank": rep["peak_bytes_per_rank"],
-            "child_s": secs}
+            "base_step_ms_median": base_ms,
+            "host_overhead_ms": rep["step_ms_median"] - base_ms,
+            "peak_bytes_per_rank": rep["peak_bytes_per_rank"]}
 
 
-def sharded_serve(tmp: str, nproc: int, mp: int, mode: str,
-                  one: dict) -> dict:
-    """``launch.serve`` over ``nproc`` ranks, held against phase 5's
-    tokens."""
-    B, P, G = SERVE
-    path = os.path.join(tmp, f"serve_{nproc}_{mp}_{mode}.json")
-    rc, out, secs = launch("repro_torch.launch.serve", nproc, [
-        "--arch", "qwen1.5-0.5b", "--batch", str(B), "--prompt-len", str(P),
-        "--gen", str(G), "--mode", mode, "--model-parallel", str(mp),
-        "--json", path], tmp)
-    rep = json.load(open(path)) if rc == 0 and os.path.exists(path) else None
-    if rep is None:
-        check(f"sharded serve, {nproc} rank(s), model={mp}, --mode {mode}",
-              False, failure(rc, out))
-        return {"exit": rc}
-    got, want = torch.tensor(rep["tokens"]), torch.tensor(one["tokens"])
+def held_serve(label: str, rep: dict, base: dict, held: str,
+               all_tokens: bool) -> dict:
+    """``rep``'s greedy tokens held against ``base``'s: all of them, or
+    the first of each sequence (bf16 partial sums reduced across cards
+    round where one card rounds once, so later tokens may part)."""
+    got, want = torch.tensor(rep["tokens"]), torch.tensor(base["tokens"])
     same = torch.equal(got, want)
     share = (got == want).float().mean().item()
-    # 'model' > 1 sums each row-parallel product's bf16 partials across
-    # cards, rounding where one card rounds once: tokens may part later
-    # in a sequence, so there the first token of each is held
-    held = "all" if mp == 1 else "the first of each"
-    ok = same if mp == 1 else bool((got[:, 0] == want[:, 0]).all())
-    check(f"sharded serve {B}x{P} + {G}, {nproc} rank(s), mesh "
-          f"{rep['mesh']}, --mode {mode}: greedy tokens against the "
-          f"one-device run ({held} equal)", ok,
+    ok = same if all_tokens else bool((got[:, 0] == want[:, 0]).all())
+    check(f"{label}: greedy tokens against {held} "
+          f"({'all' if all_tokens else 'the first of each'} equal)", ok,
           f"{share:.4f} of tokens equal; prefill {rep['prefill_ms']:.3f} "
-          f"ms (one device "
-          f"{one['prefill_ms']:.3f}), decode {rep['decode_ms_per_step']:.3f}"
-          f" ms a step (one device {one['decode_ms_per_step']:.3f}); peak "
-          f"per rank {[p / 2**30 for p in rep['peak_bytes_per_rank']]} "
-          f"GiB; child {secs:.1f} s")
-    return {"nproc": nproc, "model_parallel": mp, "mode": mode,
-            "mesh": rep["mesh"], "tokens_equal": same,
-            "tokens_equal_share": share,
+          f"ms ({held} {base['prefill_ms']:.3f}), decode "
+          f"{rep['decode_ms_per_step']:.3f} ms a step ({held} "
+          f"{base['decode_ms_per_step']:.3f}); peak per rank "
+          f"{gib(rep['peak_bytes_per_rank'])} GiB")
+    return {"mesh": rep["mesh"], "mode": rep["mode"], "held_against": held,
+            "tokens_equal": same, "tokens_equal_share": share,
             "prefill_ms": rep["prefill_ms"],
             "decode_ms_per_step": rep["decode_ms_per_step"],
-            "one_device_prefill_ms": one["prefill_ms"],
-            "one_device_decode_ms_per_step": one["decode_ms_per_step"],
+            "base_prefill_ms": base["prefill_ms"],
+            "base_decode_ms_per_step": base["decode_ms_per_step"],
             "host_overhead_prefill_ms": rep["prefill_ms"]
-            - one["prefill_ms"],
+            - base["prefill_ms"],
             "host_overhead_decode_ms_per_step": rep["decode_ms_per_step"]
-            - one["decode_ms_per_step"],
-            "peak_bytes_per_rank": rep["peak_bytes_per_rank"],
-            "child_s": secs}
+            - base["decode_ms_per_step"],
+            "peak_bytes_per_rank": rep["peak_bytes_per_rank"]}
 
 
-def phase_sharded(served: dict, trained: dict) -> None:
-    """Phase 9: the sharded path under torch.distributed.run and NCCL at
-    full width, over every card, against phases 5 and 6."""
+def run_child(label: str, target: list, nproc: int, args: list, tmp: str,
+              path: str, timeout: int = SHARDED_TIMEOUT_S):
+    """A child of ``launch`` that writes its report to ``path``: the
+    report (with the child's seconds), or None after a failed check."""
+    rc, out, secs = launch(target, nproc, args, tmp, timeout)
+    if rc != 0 or not os.path.exists(path):
+        check(label, False, failure(rc, out))
+        return None
+    with open(path) as f:
+        rep = json.load(f)
+    rep["child_s"] = secs
+    print(f"  {label}: child {secs:.1f} s")
+    return rep
+
+
+def sharded_train(tmp: str, nproc: int, mp: int, mode: str, arch: str = QWEN,
+                  timeout: int = SHARDED_TIMEOUT_S):
+    """``launch.train`` bf16 8 x 1024, 3 steps, over ``nproc`` ranks with
+    'model' = ``mp``: its report, or None after a failed check."""
+    B, S = TRAIN[:2]
+    path = os.path.join(tmp, f"train_{arch}_{nproc}_{mp}_{mode}.json")
+    return run_child(
+        f"{arch} train {B}x{S}, {nproc} rank(s), model={mp}, --mode {mode}",
+        ["-m", "repro_torch.launch.train"], nproc, [
+            "--arch", arch, "--global-batch", str(B), "--seq-len", str(S),
+            "--steps", str(SHARDED_TRAIN_STEPS), "--mode", mode,
+            "--model-parallel", str(mp), "--log-every", "1", "--json", path],
+        tmp, path, timeout)
+
+
+def sharded_serve(tmp: str, nproc: int, mp: int, mode: str, arch: str = QWEN,
+                  timeout: int = SHARDED_TIMEOUT_S):
+    """``launch.serve`` bf16 8 x 1024 + 32 over ``nproc`` ranks with
+    'model' = ``mp``: its report, or None after a failed check."""
+    B, P, G = SERVE
+    path = os.path.join(tmp, f"serve_{arch}_{nproc}_{mp}_{mode}.json")
+    return run_child(
+        f"{arch} serve {B}x{P} + {G}, {nproc} rank(s), model={mp}, --mode "
+        f"{mode}", ["-m", "repro_torch.launch.serve"], nproc, [
+            "--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+            "--gen", str(G), "--mode", mode, "--model-parallel", str(mp),
+            "--json", path], tmp, path, timeout)
+
+
+def phase_sharded(served: dict, trained: dict) -> dict:
+    """Phase 9's qwen runs: the sharded path under torch.distributed.run
+    and NCCL at full width, over every card, against phases 5 and 6."""
     print("== phase 9: the sharded path (torch.distributed.run, NCCL), "
-          "qwen1.5-0.5b at full width")
+          f"{QWEN} at full width")
     t0 = time.perf_counter()
     cards = torch.cuda.device_count()
     torch.cuda.empty_cache()  # the children need the card's memory
@@ -1554,48 +1604,224 @@ def phase_sharded(served: dict, trained: dict) -> None:
         if cards < 2:
             print(f"  ran 1-way only: the machine shows {cards} card")
             # no fallback: 2-way on one card must fail, not run 1-way
-            rc, out, _ = launch("repro_torch.launch.train", cards, [
-                "--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1",
+            rc, out, _ = launch(["-m", "repro_torch.launch.train"], cards, [
+                "--arch", QWEN, "--smoke", "--steps", "1",
                 "--model-parallel", "2"], tmp)
             check("--model-parallel 2 over 1 card refuses",
                   rc != 0 and "do not split into model=2" in out,
                   f"exit {rc}")
         for mp in meshes:
             for mode in SHARDED_MODES:
-                rep["train"].append(sharded_train(tmp, cards, mp, mode,
-                                                  trained))
-            rep["serve"].append(sharded_serve(tmp, cards, mp, "tp", served))
+                r = sharded_train(tmp, cards, mp, mode)
+                if r is not None:
+                    rep["train"].append(held_train(
+                        f"sharded train, {cards} rank(s), mesh {r['mesh']},"
+                        f" --mode {mode}", r, trained, "the one-device run"))
+            for mode in SHARDED_SERVE_MODES:
+                r = sharded_serve(tmp, cards, mp, mode)
+                if r is not None:
+                    rep["serve"].append(held_serve(
+                        f"sharded serve, {cards} rank(s), mesh {r['mesh']},"
+                        f" --mode {mode}", r, served, "the one-device run",
+                        all_tokens=mp == 1))
     rep["phase_s"] = time.perf_counter() - t0
-    print(f"  phase 9 took {rep['phase_s']:.1f} s")
+    print(f"  phase 9 ({QWEN}) took {rep['phase_s']:.1f} s")
     print(json.dumps({"sharded": rep}))
+    return rep
+
+
+def moe_child(mode: str, layers: int, mp: int, path: str) -> None:
+    """``--moe``, in the ranks of a ``torch.distributed.run`` launch:
+    phi3.5-moe at full width and ``layers`` layers, bf16 with f32 master
+    weights and remat as ``launch.train`` runs it, through the library:
+    the parameters and optimizer state from ``init`` (``mode`` "one": one
+    device, no mesh) or ``init_sharded`` over the (data, model) mesh of
+    the ranks with 'model' = ``mp``; a greedy serve of 8 x 1024 + 32 from
+    the drawn weights cast once to bf16, then 3 train steps of 8 x 1024.
+    Rank 0 writes the report to ``path``."""
+    cfg = get_config(MOE_ARCH).scaled(n_layers=layers)
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    if mode == "one":
+        torch.cuda.set_device(dev)
+        moe_run(cfg, dev, None, None, path)
+    else:
+        run_launched(mp, dev, lambda d, mesh, dmesh: moe_run(
+            cfg, d, dmesh, mode, path, mesh.shape))
+
+
+def moe_run(cfg, dev, dmesh, mode, path: str, mesh_shape=None) -> None:
+    B, S = TRAIN[:2]
+    SB, P, G = SERVE
+    oc = OptConfig(decay_steps=10)  # launch.train's, for a short run
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    if dmesh is None:
+        params, opt = init(cfg, oc, dev)
+    else:
+        params, _, opt = init_sharded(cfg, oc, dmesh, mode, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    served = cast_for_compute(cfg, params)
+    tokens, stats = serve.generate(cfg, served, serve.make_batch(
+        cfg, SB, P, dev), G, dmesh, mode or "tp")
+    del served
+    step = make_train_step(cfg, oc, mesh=dmesh, mode=mode or "tp")
+    data = SyntheticTokens(DataConfig(global_batch=B, seq_len=S,
+                                      vocab=cfg.vocab))
+    times, losses, gnorms = [], [], []
+    for _ in range(SHARDED_TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        times.append((time.perf_counter() - t) * 1e3)
+    peaks = per_rank(torch.cuda.max_memory_allocated(dev))
+    if is_main():
+        with open(path, "w") as f:
+            json.dump({"arch": cfg.name, "layers": cfg.n_layers,
+                       "mode": mode, "mesh": mesh_shape, "init_s": init_s,
+                       "tokens": tokens.tolist(),
+                       "prefill_ms": stats["prefill_ms"],
+                       "decode_ms_per_step": stats["decode_ms_per_step"],
+                       "step_ms": times,
+                       "step_ms_median": statistics.median(times[1:]),
+                       "loss": losses, "grad_norm": gnorms,
+                       "peak_bytes_per_rank": peaks}, f)
+
+
+def moe_runs(tmp: str, layers: int, runs, nproc: int) -> list:
+    """The ``--moe`` children of ``runs`` ((mode, 'model') pairs, the
+    first the baseline) over ``nproc`` ranks, each held against the
+    first: losses and grad norms at ``SHARDED_LOSS_RTOL``, the first
+    token of each sequence equal."""
+    reps = []
+    for mode, mp in runs:
+        path = os.path.join(tmp, f"moe_{layers}_{mode}_{mp}.json")
+        label = (f"{MOE_ARCH} at {layers} layers, bf16, "
+                 f"{'one device' if mode == 'one' else f'--mode {mode}'}, "
+                 f"{nproc} rank(s), model={mp}")
+        r = run_child(label, [os.path.join(ROOT, "chip_smoke.py"), "--moe"],
+                      nproc if mode != "one" else 1,
+                      [mode, str(layers), str(mp), path], tmp, path,
+                      WIDE_TIMEOUT_S)
+        if r is None:
+            return reps
+        print(f"  {label}: init {r['init_s']:.1f} s, peak per rank "
+              f"{gib(r['peak_bytes_per_rank'])} GiB, steps {r['step_ms']} ms")
+        if not reps:
+            reps.append({"base": r})
+            continue
+        base, held = reps[0]["base"], f"{runs[0][0]}, model={runs[0][1]}"
+        reps.append({"train": held_train(label, r, base, held),
+                     "serve": held_serve(label, r, base, held, False),
+                     "init_s": r["init_s"], "child_s": r["child_s"]})
+    return reps
+
+
+def phase_moe() -> dict:
+    """Phase 9's MoE: phi3.5-moe at full width and 2 layers on one card,
+    one-device and in MOE_MODES on the 1x1 mesh."""
+    print(f"== phase 9: {MOE_ARCH} at full width, {MOE_LAYERS} layers, "
+          f"one device and {'/'.join(MOE_MODES)}")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="tcm-moe-") as tmp:
+        reps = moe_runs(tmp, MOE_LAYERS, [("one", 1)] +
+                        [(m, 1) for m in MOE_MODES], 1)
+    rep = {"runs": reps, "phase_s": time.perf_counter() - t0}
+    print(f"  phase 9 ({MOE_ARCH}) took {rep['phase_s']:.1f} s")
+    print(json.dumps({"sharded_moe": rep}))
+    return rep
+
+
+def phase_wide() -> dict:
+    """``--sharded``'s runs that need 4 cards: minitron-8b trained and
+    served in tp_fsdp on (2, 2) against tp on (1, 4), and phi3.5-moe at 4
+    layers in tp_ep on (2, 2) against tp on (1, 4)."""
+    cards = torch.cuda.device_count()
+    print(f"== --sharded: {WIDE_ARCH} at full width and {MOE_ARCH} at "
+          f"{WIDE_MOE_LAYERS} layers over {WIDE_CARDS} cards")
+    if cards < WIDE_CARDS:
+        check(f"{WIDE_CARDS} cards for the wide runs", False,
+              f"the machine shows {cards}")
+        return {}
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rep = {"train": [], "serve": []}
+    with tempfile.TemporaryDirectory(prefix="tcm-wide-") as tmp:
+        base = None
+        for mode, mp in WIDE_RUNS:
+            r = sharded_train(tmp, WIDE_CARDS, mp, mode, WIDE_ARCH,
+                              WIDE_TIMEOUT_S)
+            if r is None:
+                break
+            if base is None:
+                base, held = r, f"{mode}, model={mp}"
+                print(f"  {WIDE_ARCH} {mode}: steps {r['step_ms']} ms, "
+                      f"losses {r['loss']}, peak per rank "
+                      f"{gib(r['peak_bytes_per_rank'])} GiB")
+                rep["train"].append({"base": r})
+                continue
+            rep["train"].append(held_train(
+                f"{WIDE_ARCH} train, mesh {r['mesh']}, --mode {mode}", r,
+                base, held))
+        base = None
+        for mode, mp in WIDE_RUNS:
+            r = sharded_serve(tmp, WIDE_CARDS, mp, mode, WIDE_ARCH,
+                              WIDE_TIMEOUT_S)
+            if r is None:
+                break
+            if base is None:
+                base, held = r, f"{mode}, model={mp}"
+                rep["serve"].append({"base": r})
+                continue
+            rep["serve"].append(held_serve(
+                f"{WIDE_ARCH} serve, mesh {r['mesh']}, --mode {mode}", r,
+                base, held, False))
+        rep["moe"] = moe_runs(tmp, WIDE_MOE_LAYERS, WIDE_MOE_RUNS,
+                              WIDE_CARDS)
+    rep["phase_s"] = time.perf_counter() - t0
+    print(f"  the wide runs took {rep['phase_s']:.1f} s")
+    print(json.dumps({"sharded_wide": rep}))
+    return rep
+
+
+def one_device_qwen() -> tuple:
+    """One-device ``launch.serve`` and ``launch.train`` (3 steps) at phase
+    5's and phase 6's shapes, to hold phase 9 against: (served,
+    trained)."""
+    with tempfile.TemporaryDirectory(prefix="tcm-one-") as tmp:
+        B, S = TRAIN[:2]
+        train.main(["--arch", QWEN, "--global-batch", str(B), "--seq-len",
+                    str(S), "--steps", str(SHARDED_TRAIN_STEPS),
+                    "--log-every", "1", "--json",
+                    os.path.join(tmp, "t.json")])
+        torch.cuda.empty_cache()
+        B, P, G = SERVE
+        serve.main(["--arch", QWEN, "--batch", str(B), "--prompt-len",
+                    str(P), "--gen", str(G), "--json",
+                    os.path.join(tmp, "s.json")])
+        with open(os.path.join(tmp, "s.json")) as fs, \
+                open(os.path.join(tmp, "t.json")) as ft:
+            return json.load(fs), json.load(ft)
 
 
 def sharded_alone() -> int:
-    """``--sharded``: phase 9 alone, held against one-device runs of
-    ``launch.train`` (3 steps) and ``launch.serve`` at phase 6's and
-    phase 5's shapes, for a machine with more cards than the full run
-    needs."""
+    """``--sharded``: phase 9's qwen runs over every card, held against
+    one-device runs of ``launch.train`` (3 steps) and ``launch.serve`` at
+    phase 6's and phase 5's shapes, then the wide runs (4 cards)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    with tempfile.TemporaryDirectory(prefix="tcm-one-") as tmp:
-        B, S = TRAIN[:2]
-        train.main(["--arch", "qwen1.5-0.5b", "--global-batch", str(B),
-                    "--seq-len", str(S), "--steps",
-                    str(SHARDED_TRAIN_STEPS), "--log-every", "1", "--json",
-                    os.path.join(tmp, "t.json")])
-        torch.cuda.empty_cache()
-        B, P, G = SERVE
-        serve.main(["--arch", "qwen1.5-0.5b", "--batch", str(B),
-                    "--prompt-len", str(P), "--gen", str(G), "--json",
-                    os.path.join(tmp, "s.json")])
-        with open(os.path.join(tmp, "s.json")) as fs, \
-                open(os.path.join(tmp, "t.json")) as ft:
-            served, trained = json.load(fs), json.load(ft)
+    served, trained = one_device_qwen()
+    torch.cuda.empty_cache()
     phase_sharded(served, trained)
+    phase_wide()
     return 1 if FAILURES else 0
 
 
@@ -1636,7 +1862,10 @@ def main() -> int:
     if FAILURES:
         print(f"phase 8 failed: {FAILURES}", file=sys.stderr)
         return 1
+    t9 = time.perf_counter()
     phase_sharded(served, trained["run"])
+    phase_moe()
+    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
     if FAILURES:
         print(f"phase 9 failed: {FAILURES}", file=sys.stderr)
         return 1
@@ -1677,4 +1906,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--sharded"]:
         sys.exit(sharded_alone())
+    if sys.argv[1:2] == ["--moe"]:
+        moe_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

@@ -34,6 +34,9 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
+import torch
+import torch.distributed as dist
+
 from ..launch.mesh import Mesh, as_mesh
 
 Spec = Tuple[Optional[str], ...]
@@ -226,19 +229,32 @@ def full(x):
     return x.full_tensor() if is_dtensor(x) else x
 
 
-# what the model runs over a mesh: the dense family, in these modes
-SHARDED_FAMILIES = ("dense",)
-SHARDED_MODES = ("tp", "dp")
+# what the model runs over a mesh: these families, in every mode of RULES
+SHARDED_FAMILIES = ("dense", "moe")
+SHARDED_MODES = tuple(RULES)
 
 
-def check_sharded(cfg, mode: str) -> None:
+def check_sharded(cfg, mode: str, mesh=None) -> None:
     """Raises ValueError unless the model runs ``cfg`` over a mesh in
-    ``mode``."""
+    ``mode``, and, given ``mesh``, unless the mesh extent that ``mode``
+    shards the layer stack over divides the stack.  (On such a mesh the
+    reference drops the 'layers' mapping, hands the axis to the stack's
+    'embed' dim, and its jit'd step then refuses the layout.)"""
     if cfg.family not in SHARDED_FAMILIES or mode not in SHARDED_MODES:
         raise ValueError(
             f"the sharded path runs the {'/'.join(SHARDED_FAMILIES)} "
-            f"family in modes {'/'.join(SHARDED_MODES)}; not "
+            f"families in modes {'/'.join(SHARDED_MODES)}; not "
             f"{cfg.name} ({cfg.family}) in mode {mode!r}")
+    if mesh is None:
+        return
+    mesh = as_mesh(mesh)
+    axes = spec_to_pspec(("layers",), RULES[mode], mesh)[0]
+    n = 1 if axes is None else _extent(mesh, axes)
+    if cfg.n_layers % n:
+        raise ValueError(
+            f"mode {mode!r} shards the layer stack over {axes!r} of extent "
+            f"{n}, which does not divide {cfg.name}'s {cfg.n_layers} "
+            f"layers")
 
 
 def _extent(mesh: Mesh, entry) -> int:
@@ -336,13 +352,129 @@ def attention_pspecs(q_shape, kv_shape) -> Tuple[PartitionSpec,
 def local_offset(x, dim: int) -> int:
     """Where this rank's shard of the DTensor ``x`` starts along ``dim``
     (even shards, major to minor over the mesh dims that split it)."""
-    coord = x.device_mesh.get_coordinate()
-    size, off = x.shape[dim], 0
-    for i, pl in enumerate(x.placements):
-        if pl.is_shard(dim):
-            size //= x.device_mesh.size(i)
-            off += coord[i] * size
-    return off
+    return local_index(x.placements, x.device_mesh, x.shape)[dim].start
+
+
+def local_index(pl, dmesh, shape) -> Tuple[slice, ...]:
+    """The slices of a tensor of whole ``shape`` that this rank holds
+    under placements ``pl`` on ``dmesh``: even shards, major to minor over
+    the mesh dims that split a dim, as DTensor cuts them."""
+    coord = dmesh.get_coordinate()
+    lo, size = [0] * len(shape), list(shape)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            size[p.dim] //= dmesh.size(i)
+            lo[p.dim] += coord[i] * size[p.dim]
+    return tuple(slice(a, a + n) for a, n in zip(lo, size))
+
+
+def _from_local(local, dmesh, pl, shape):
+    """The DTensor of whole ``shape`` whose shard on this rank is
+    ``local``, laid out by ``pl``."""
+    from torch.distributed.tensor import DTensor
+
+    whole = torch.empty(shape, device="meta")
+    return DTensor.from_local(local, dmesh, pl, run_check=False,
+                              shape=whole.shape, stride=whole.stride())
+
+
+def local_part(spec, shape, dmesh, mode: str):
+    """Where a leaf of logical ``spec`` and whole ``shape`` lies on this
+    rank of ``dmesh`` by ``mode``'s rules (divisibility-gated, as
+    ``distribute`` places it): (the slices this rank holds, the function
+    that makes those slices, as a tensor, the DTensor)."""
+    pl = placements(spec_to_pspec(tuple(spec), RULES[mode], dmesh,
+                                  dims=tuple(shape)), dmesh)
+    return (local_index(pl, dmesh, shape),
+            lambda local: _from_local(local, dmesh, pl, shape))
+
+
+def sharded_zeros(spec, shape, dtype, dmesh, mode: str, device):
+    """Zeros of whole ``shape`` placed on ``dmesh`` as ``local_part``
+    places a leaf of logical ``spec``; only this rank's shard is
+    allocated, on ``device``."""
+    index, wrap = local_part(spec, shape, dmesh, mode)
+    return wrap(torch.zeros([s.stop - s.start for s in index], dtype=dtype,
+                            device=device))
+
+
+def layer(stack, i: int):
+    """Layer ``i`` of the stacked parameter ``stack``: ``stack[i]``, or,
+    for a DTensor whose layer dim is split over ranks (``tp_fsdp``), the
+    layer broadcast from the rank that holds it to the others of its
+    group, keeping its other placements.  In the backward the layer's
+    gradient is reduced onto that rank: the reference's reduce-scatter of
+    a layer-sharded stack."""
+    if is_dtensor(stack) and any(p.is_shard(0) for p in stack.placements):
+        return _LayerGather.apply(stack, i)
+    return stack[i]
+
+
+def _gather_plan(stack, i: int):
+    """(mesh dim splitting the stack's layers, the owner's global rank,
+    whether this rank owns layer ``i``, its index in the owner's shard,
+    the layer's placements)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = stack.device_mesh, tuple(stack.placements)
+    dims = [m for m, p in enumerate(pl) if p.is_shard(0)]
+    if len(dims) != 1:
+        raise NotImplementedError(
+            f"a layer stack split over {len(dims)} mesh dims ({pl}); the "
+            f"layer gather takes one")
+    dim = dims[0]
+    per = stack.shape[0] // mesh.size(dim)
+    owner, j = divmod(i, per)
+    coord = list(mesh.get_coordinate())
+    mine = coord[dim] == owner
+    coord[dim] = owner
+    src = int(mesh.mesh[tuple(coord)])
+    layer_pl = tuple(Replicate() if m == dim else
+                     (Shard(p.dim - 1) if p.is_shard() else p)
+                     for m, p in enumerate(pl))
+    return dim, src, mine, j, layer_pl
+
+
+class _LayerGather(torch.autograd.Function):
+    """``layer``'s gather: a broadcast from the owner in the forward, a
+    reduce onto it in the backward."""
+
+    @staticmethod
+    def forward(ctx, stack, i):
+        dim, src, mine, j, layer_pl = _gather_plan(stack, i)
+        mesh, local = stack.device_mesh, stack.to_local()
+        buf = (local[j].contiguous() if mine else
+               torch.empty(local.shape[1:], dtype=local.dtype,
+                           device=local.device))
+        dist.broadcast(buf, src=src, group=mesh.get_group(dim))
+        ctx.plan = (dim, src, mine, j, layer_pl)
+        ctx.stack = (mesh, tuple(stack.placements), tuple(stack.shape),
+                     local.shape)
+        return _from_local(buf, mesh, layer_pl, stack.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
+        if g is None:
+            return None, None
+        dim, src, mine, j, layer_pl = ctx.plan
+        mesh, pl, shape, local_shape = ctx.stack
+        # the layer's own layout, except that a sum still pending over the
+        # owner's group is reduced onto the owner alone
+        pending = g.placements[dim]
+        target = list(layer_pl)
+        target[dim] = pending if pending.is_partial() else Replicate()
+        g = g.redistribute(mesh, target).to_local()
+        if pending.is_partial():
+            if pending.reduce_op != "sum":
+                raise NotImplementedError(f"a {pending} gradient")
+            g = g.contiguous().clone()
+            dist.reduce(g, dst=src, group=mesh.get_group(dim))
+        out = torch.zeros(local_shape, dtype=g.dtype, device=g.device)
+        if mine:
+            out[j] = g
+        return _from_local(out, mesh, pl, shape), None
 
 
 def seq_replicated_like(upd, buf):

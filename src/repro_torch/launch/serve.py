@@ -14,10 +14,10 @@ Weights are drawn from ``torch.Generator().manual_seed(0)`` on the CPU, so
 every device and every rank serves the same model, and cast once to the
 compute dtype.  Under ``torch.distributed.run`` the ranks form a (data,
 model) mesh with 'model' = ``--model-parallel`` (which must divide them)
-and serve by ``--mode`` (``tp`` or ``dp``) through
-``serving.engine.make_serve_steps``; every rank decodes the same tokens
-and rank 0 prints and writes.  Without the launcher's environment the run
-is one process on one device.
+and serve by ``--mode`` (``tp``, ``dp``, ``tp_ep`` or ``tp_fsdp``)
+through ``serving.engine.make_serve_steps``; every rank decodes the same
+tokens and rank 0 prints and writes.  Without the launcher's environment
+the run is one process on one device.
 """
 from __future__ import annotations
 
@@ -191,7 +191,8 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--mode", default="tp",
                     help="the reference's sharding mode over the ranks of "
-                    "a torch.distributed.run launch: tp or dp")
+                    "a torch.distributed.run launch: tp, dp, tp_ep or "
+                    "tp_fsdp")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="the mesh's 'model' extent; must divide the ranks")
     ap.add_argument("--map-service", action="store_true",

@@ -19,8 +19,9 @@ Under ``torch.distributed.run`` every rank joins the process group (NCCL
 on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``), the (data, model)
 mesh spans the ranks with 'model' = ``--model-parallel`` (which must
 divide the ranks, as the reference's ``make_host_mesh`` asserts), and
-``--mode`` (``tp`` or ``dp``) lays parameters, optimizer state, batch and
-activations out by the reference's rules (``training.step``).  Rank 0
+``--mode`` (``tp``, ``dp``, ``tp_ep`` or ``tp_fsdp``) lays parameters,
+optimizer state, batch and activations out by the reference's rules
+(``training.step``).  Rank 0
 prints and writes; checkpoints restore onto whatever mesh the run has.
 Without the launcher's environment the run is one process on one device,
 where ``--model-parallel`` above 1 does not divide and ``--mode`` is not
@@ -92,7 +93,8 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mode", default="tp",
                     help="the reference's sharding mode over the ranks of "
-                    "a torch.distributed.run launch: tp or dp")
+                    "a torch.distributed.run launch: tp, dp, tp_ep or "
+                    "tp_fsdp")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="the mesh's 'model' extent; must divide the ranks")
     ap.add_argument("--ckpt-dir", default=None)

@@ -472,14 +472,26 @@ def moe(cfg, p: Params, x):
     Returns (out, aux_loss).  Tokens past an expert's capacity go to a
     scratch slot at index ``capacity`` and are weighted 0 on the way back.
     The scatters accumulate with ``index_put_``; on CUDA the order of the
-    additions into one row is not fixed.
-    """
+    additions into one row is not fixed.  Over a mesh it runs per rank
+    (``_moe_sharded``) and gives the one-device result for the whole
+    batch."""
+    if sharding.is_dtensor(x):
+        return _moe_sharded(cfg, p, x)
+    return _moe(cfg, p["router"], p["wg"], p["wu"], p["wd"], x)
+
+
+def _moe(cfg, router, wg, wu, wd, x, e0: int = 0):
+    """The MoE on plain tensors: every token of ``x`` is routed, and the
+    experts ``e0``, ``e0 + 1``, ... that ``wg``/``wu``/``wd`` hold (all of
+    them, or a rank's share, each perhaps a slice of the ff dim) compute
+    their tokens.  Returns (out, aux): out sums only those experts' (and
+    ff columns') contributions."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
     dt = cfg.torch_dtype
-    logits = (xt @ p["router"].float().to(dt)).float()  # (T, E)
+    logits = (xt @ router.float().to(dt)).float()  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = top_k(probs, K)  # (T, K)
     gate_vals = gate_vals / torch.clamp_min(
@@ -500,23 +512,69 @@ def moe(cfg, p: Params, x):
     pos = pos_in_expert.gather(1, flat_expert[:, None])[:, 0]  # (T*K,)
     keep = pos < capacity
     slot = torch.where(keep, pos, capacity)  # overflow -> scratch slot
+    tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
+    w = (gate_vals.reshape(-1) * keep).to(dt)
+    n_local = wg.shape[0]
+    if n_local < E:  # a rank's experts: only their (token, k) pairs
+        sel = ((flat_expert >= e0) & (flat_expert < e0 + n_local)) \
+            .nonzero()[:, 0]
+        flat_expert, slot = flat_expert[sel] - e0, slot[sel]
+        tok_idx, w = tok_idx[sel], w[sel]
 
     # dispatch: (E, capacity+1, D); scratch row absorbs dropped tokens
-    buf = torch.zeros((E, capacity + 1, D), dtype=dt, device=x.device)
-    tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
+    buf = torch.zeros((n_local, capacity + 1, D), dtype=dt, device=x.device)
     buf.index_put_((flat_expert, slot), xt[tok_idx].to(dt), accumulate=True)
     buf = constrain(buf, ("expert", None, None))
 
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"].to(dt)))
-    u = torch.einsum("ecd,edf->ecf", buf, p["wu"].to(dt))
-    y = torch.einsum("ecf,efd->ecd", h * u, p["wd"].to(dt))
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg.to(dt)))
+    u = torch.einsum("ecd,edf->ecf", buf, wu.to(dt))
+    y = torch.einsum("ecf,efd->ecd", h * u, wd.to(dt))
 
     # combine
     gathered = y[flat_expert, slot]  # (T*K, D)
-    w = (gate_vals.reshape(-1) * keep).to(dt)
     out = torch.zeros((T, D), dtype=dt, device=x.device).index_put_(
         (tok_idx,), gathered * w[:, None], accumulate=True)
     return out.reshape(B, S, D), aux
+
+
+def _moe_sharded(cfg, p: Params, x):
+    """``_moe`` over a mesh, per rank under ``local_map``, with the
+    reference's global semantics: every rank routes the whole batch
+    (gathered), so capacity, queue positions and the aux loss's means are
+    the batch's, and computes only its experts ('expert' over 'model',
+    the reference's ``("expert", None, None)`` buffer) and, under
+    ``tp_ep``, its slice of their ff dim ('mlp' over 'data').  The output
+    is the sum over the mesh dims that split them (a ``Partial``, reduced
+    by the caller's constraint), and their gradients with respect to the
+    tokens and the router are partial sums the same way.  The aux loss,
+    the same on every rank, is counted once: by the rank at coordinate 0
+    of those dims."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    # the rules split the three alike: experts over 'model', their ff
+    # columns over 'data' under tp_ep
+    w_pl = [tuple(w.placements) for w in (wg, wu, wd)]
+    split = [pl.is_shard() for pl in w_pl[0]]
+    whole = (Replicate(),) * mesh.ndim
+    summed = tuple(Partial() if s else Replicate() for s in split)
+    e0 = sharding.local_offset(wg, 0)
+    coord = mesh.get_coordinate()
+    lead = all(c == 0 for c, s in zip(coord, split) if s)
+
+    def per_rank(xf, router, wg, wu, wd):
+        out, aux = _moe(cfg, router, wg, wu, wd, xf, e0)
+        return out, aux if lead else aux * 0.0
+
+    fn = local_map(per_rank, out_placements=(summed, summed),
+                   in_placements=(whole, whole, *w_pl),
+                   in_grad_placements=(summed, summed, *w_pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    out, aux = fn(x, p["router"], wg, wu, wd)
+    return (constrain(out, ("batch", None, None)),
+            aux.redistribute(mesh, whole))
 
 
 def embedding_params(cfg, gen: torch.Generator) -> Params:

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, layer, map_specs
 from .config import ModelConfig
 from .layers import (_init, _whole_seq, attention_block, attention_params,
                      cross_attention_cached, cross_kv, embedding_params, mlp,
@@ -96,13 +96,6 @@ def tree_unflatten(like, leaves: List):
         return None if t is None else next(it)
 
     return build(like)
-
-
-def _stack(trees: List[Params]) -> Params:
-    """Stacks same-shaped parameter dicts along a new leading axis."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 # ---------------------------------------------------------------------------
@@ -289,27 +282,71 @@ def param_specs(cfg: ModelConfig) -> Params:
     return specs
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
+def init(cfg: ModelConfig, generator: torch.Generator, device,
+         part=None) -> Params:
     """Random parameters in the reference's layout, drawn from
-    ``generator`` on its own device, then moved to ``device``: a CPU
-    generator gives the same weights on every device.  (``jax.random``
-    cannot be reproduced; the parity tests carry JAX's weights across
-    instead.)"""
+    ``generator`` on its own device, leaf by leaf and, in a stack, layer
+    by layer, each moved to ``device`` as it is drawn: a CPU generator
+    gives the same weights on every device.  (``jax.random`` cannot be
+    reproduced; the parity tests carry JAX's weights across instead.)
+
+    ``part(spec, shape)``, when given, says which part of each leaf of
+    logical ``spec`` and whole ``shape`` to keep: (a tuple of slices of
+    it, the function that turns the kept part into the tree's leaf).  Only
+    those parts reach ``device``, and no more than one whole leaf or layer
+    is held on the generator's device at a time; the values are the ones
+    the whole tree holds there."""
     gen = generator
     pdt = cfg.torch_param_dtype
-    params: Params = {"embed": embedding_params(cfg, gen),
-                      "final_norm": rmsnorm_params(cfg.d_model, pdt,
-                                                   gen.device)}
+    specs = param_specs(cfg)
+    if part is None:
+        def part(spec, shape):
+            return tuple(slice(0, n) for n in shape), lambda t: t
+
+    def kept(spec, whole):
+        index, wrap = part(spec, tuple(whole.shape))
+        return wrap(whole[index].to(device, copy=True))
+
+    params: Params = {"embed": map_specs(kept, specs["embed"],
+                                         embedding_params(cfg, gen)),
+                      "final_norm": map_specs(kept, specs["final_norm"],
+                                              rmsnorm_params(cfg.d_model, pdt,
+                                                             gen.device))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = _init(gen, (cfg.d_model, cfg.vocab), pdt)
+        params["lm_head"] = kept(specs["lm_head"],
+                                 _init(gen, (cfg.d_model, cfg.vocab), pdt))
     if cfg.frontend != "none":
-        params["frontend_proj"] = _init(
-            gen, (cfg.frontend_dim, cfg.d_model), pdt)
+        params["frontend_proj"] = kept(specs["frontend_proj"], _init(
+            gen, (cfg.frontend_dim, cfg.d_model), pdt))
     params["groups"] = [
-        [_stack([_layer_params(cfg, kind, gen) for _ in range(count)])
-         for kind in kinds]
-        for kinds, count in _stack_groups(cfg)]
-    return tree_map(lambda t: t.to(device), params)
+        [_stack_drawn(count, lambda: _layer_params(cfg, kind, gen),
+                      gspecs[ki], part, device)
+         for ki, kind in enumerate(kinds)]
+        for (kinds, count), gspecs in zip(_stack_groups(cfg),
+                                          specs["groups"])]
+    return params
+
+
+def _stack_drawn(count: int, draw: Callable[[], Params], specs: Params,
+                 part, device) -> Params:
+    """``count`` layers from ``draw()``, stacked along a new leading axis
+    as ``torch.stack`` would: each leaf's kept part (``part``, by its
+    stacked spec in ``specs``) is allocated on ``device`` and filled layer
+    by layer, one drawn layer held at a time."""
+    out, where = None, None
+    for i in range(count):
+        drawn = draw()
+        if out is None:
+            plan = map_specs(lambda spec, t: part(
+                spec, (count,) + tuple(t.shape)), specs, drawn)
+            where = map_specs(lambda spec, pw: pw[0], specs, plan)
+            out = map_specs(lambda spec, t, idx: torch.empty(
+                [s.stop - s.start for s in idx], dtype=t.dtype,
+                device=device), specs, drawn, where)
+        for buf, t, idx in tree_zip(out, drawn, where):
+            if idx[0].start <= i < idx[0].stop:
+                buf[i - idx[0].start].copy_(t[idx[1:]])
+    return map_specs(lambda spec, buf, pw: pw[1](buf), specs, out, plan)
 
 
 def _apply_group(cfg, kinds, count, group_params, x, positions,
@@ -317,12 +354,17 @@ def _apply_group(cfg, kinds, count, group_params, x, positions,
     """The group's ``count`` layers in order; ``caches`` is the group's
     list of per-layer caches.  Returns (x, new_caches, aux).
 
-    With ``cfg.remat`` and gradients wanted, each layer's body runs under
-    ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    recomputed in the backward, the reference's ``jax.checkpoint(...,
-    nothing_saveable)`` around the scan body."""
+    Layer ``i``'s parameters are ``sharding.layer`` of each stack: an
+    index, or over a mesh that splits the stack (``tp_fsdp``) a gather of
+    that one layer from the rank that holds it.  With ``cfg.remat`` and
+    gradients wanted, each layer's body, the gather included, runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations and its
+    gathered parameters are dropped after the forward and made again in
+    the backward, the reference's ``jax.checkpoint(..., nothing_saveable)``
+    around the scan body."""
 
-    def body(x, aux, layer_params, layer_cache):
+    def body(x, aux, group_params, i, layer_cache):
+        layer_params = tree_map(lambda a: layer(a, i), group_params)
         ncs = []
         for ki, kind in enumerate(kinds):
             c = None if layer_cache is None else layer_cache[ki]
@@ -336,33 +378,43 @@ def _apply_group(cfg, kinds, count, group_params, x, positions,
     aux = 0.0
     new_caches = None if caches is None else []
     for i in range(count):
-        layer_params = tree_map(lambda a: a[i], group_params)
         layer_cache = None if caches is None else caches[i]
         if remat:
-            x, aux, ncs = checkpoint(body, x, aux, layer_params, layer_cache,
-                                     use_reentrant=False)
+            x, aux, ncs = checkpoint(body, x, aux, group_params, i,
+                                     layer_cache, use_reentrant=False)
         else:
-            x, aux, ncs = body(x, aux, layer_params, layer_cache)
+            x, aux, ncs = body(x, aux, group_params, i, layer_cache)
         if caches is not None:
             new_caches.append(ncs)
     return x, new_caches, aux
+
+
+def _table(params):
+    """The embedding table with its 'embed' dim whole on every rank (under
+    ``tp_fsdp`` it is split over 'data', as the batch is); its vocab
+    keeps its split."""
+    return constrain(params["embed"]["tok"], ("vocab", None))
 
 
 def _embed(cfg, params, tokens):
     dt = cfg.torch_dtype
     # ``F.embedding``, not indexing: a vocab-sharded table is looked up
     # per rank and summed, never gathered
-    e = F.embedding(tokens, params["embed"]["tok"]).to(dt)
+    e = F.embedding(tokens, _table(params)).to(dt)
     return constrain(e * weak_scalar(math.sqrt(cfg.d_model), dt),
                      ("batch", "act_seq", None))
 
 
 def _head(cfg, params, x):
-    x = _whole_seq(rmsnorm(params["final_norm"], x, cfg.norm_eps))
+    # the norm and the head are gathered whole along 'embed' (split over
+    # 'data' under ``tp_fsdp``): the batch keeps 'data', and the f32
+    # logits keep their split
+    norm = {"scale": constrain(params["final_norm"]["scale"], (None,))}
+    x = _whole_seq(rmsnorm(norm, x, cfg.norm_eps))
     if cfg.tie_embeddings:
-        w = params["embed"]["tok"].to(cfg.torch_dtype).T
+        w = _table(params).to(cfg.torch_dtype).T
     else:
-        w = params["lm_head"].to(cfg.torch_dtype)
+        w = constrain(params["lm_head"], (None, "vocab")).to(cfg.torch_dtype)
     return constrain((x @ w).float(), ("batch", "act_seq", "vocab"))
 
 

@@ -116,7 +116,7 @@ def make_serve_steps(cfg: ModelConfig, mesh=None, mode: str = "tp"):
     on every rank): they are placed by ``batch_shardings``; the logits
     come back as a plain replicated tensor."""
     if mesh is not None:
-        check_sharded(cfg, mode)
+        check_sharded(cfg, mode, mesh)
 
     def placed(batch):
         return batch if mesh is None else _placed(mesh, batch)

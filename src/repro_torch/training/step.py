@@ -22,8 +22,9 @@ import numpy as np
 import torch
 
 from ..distributed.sharding import (NamedSharding, activation_sharding_ctx,
-                                    batch_pspec, check_sharded, distribute,
-                                    full, place)
+                                    batch_pspec, check_sharded, full,
+                                    local_part, map_specs, place,
+                                    sharded_zeros)
 from ..models import lm
 from ..models.config import ModelConfig
 from ..optim.adamw import (OptConfig, apply_updates, init_opt_state,
@@ -60,7 +61,7 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1,
     count.  ``mesh`` is a ``DeviceMesh`` over which the parameters and the
     state are placed (``init_sharded``), or None for one device."""
     if mesh is not None:
-        check_sharded(cfg, mode)
+        check_sharded(cfg, mode, mesh)
 
     def train_step(params, opt_state, batch):
         leaves = lm.tree_leaves(params)
@@ -112,19 +113,31 @@ def init_sharded(cfg: ModelConfig, oc: Optional[OptConfig], mesh,
                  mode: str = "tp", seed: int = 0, device=None):
     """``init``'s parameters and optimizer state (None without ``oc``),
     placed on the ``DeviceMesh`` ``mesh`` by the reference's layouts:
-    ``shardings_for(param_specs, like=params)`` and
-    ``opt_state_specs``.  Every rank draws the same parameters on the CPU
-    and keeps its shards on ``device`` (default the mesh's device, e.g.
-    ``cuda:LOCAL_RANK``).  Returns (params, specs, opt_state), the
-    reference's ``init_sharded``."""
-    check_sharded(cfg, mode)
+    ``shardings_for(param_specs, like=params)`` and ``opt_state_specs``.
+    Every rank draws the same parameters from the same CPU generator
+    stream as ``init``, leaf by leaf and layer by layer, and keeps only
+    its shard of each on ``device`` (default the mesh's device, e.g.
+    ``cuda:LOCAL_RANK``): the values equal ``distribute(init(...))`` bit
+    for bit, and no rank holds more than one whole leaf or layer at a
+    time, on the CPU.  The optimizer state is made in its sharded layout
+    as zeros.  Returns (params, specs, opt_state), the reference's
+    ``init_sharded``."""
+    check_sharded(cfg, mode, mesh)
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if mesh.device_type == "cuda" else torch.device("cpu"))
-    params, opt_state = init(cfg, oc, device, seed)
     specs = lm.param_specs(cfg)
-    params = distribute(params, specs, mesh, mode)
-    if opt_state is not None:
-        opt_state = distribute(opt_state, opt_state_specs(oc, specs), mesh,
-                               mode)
+    params = lm.init(cfg, torch.Generator().manual_seed(seed), device,
+                     part=lambda spec, shape: local_part(spec, shape, mesh,
+                                                         mode))
+    if oc is None:
+        return params, specs, None
+    # the state's shapes, from meta tensors shaped like the parameters
+    shapes = init_opt_state(oc, lm.tree_map(
+        lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
+        params))
+    opt_state = map_specs(
+        lambda spec, t: sharded_zeros(spec, tuple(t.shape), t.dtype, mesh,
+                                      mode, device),
+        opt_state_specs(oc, specs), shapes)
     return params, specs, opt_state
