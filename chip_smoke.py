@@ -105,12 +105,25 @@ Phases (each prints its own lines; any failure exits nonzero):
      tokens may part) and their equal share.  One JSON line {"sharded":
      {...}}: step, prefill and decode ms beside the one-device run's,
      each rank's peak memory.  Then phi3.5-moe at full width and 2 of its
-     32 layers, through the library in children of this script (``--moe``
-     under ``torch.distributed.run``): bf16 8 x 1024 + 32 served and 3
-     steps of 8 x 1024 trained one-device, then in ``tp_ep`` and
-     ``tp_fsdp`` on the 1x1 mesh, held against the one-device run (losses
-     and grad norms at the bf16 tolerance, the first token of each
-     sequence equal); one JSON line {"sharded_moe": {...}};
+     32 layers, through the library in one child of this script (``--moe
+     all`` under ``torch.distributed.run``): bf16 8 x 1024 + 32 served and
+     3 steps of 8 x 1024 trained in ``tp_ep`` and ``tp_fsdp`` on the 1x1
+     mesh, then one device, the model drawn once, held against the
+     one-device run (losses and grad norms at the bf16 tolerance, the
+     first token of each sequence equal); one JSON line {"sharded_moe":
+     {...}}.  Then the
+     other four families at full width (``FAMILIES``: mamba2-130m at 24
+     layers and seamless-m4t-medium at 12 + 12 trained in ``dp`` and
+     served in ``tp_fsdp``, recurrentgemma-2b at 8 of 26 layers serving 4
+     x 4096 + 32 so that its window of 2048 runs the ring, llava-next-34b
+     at 2 of 60 layers with 576 patch embeddings before 448 tokens, both
+     in ``tp_fsdp``), in one child of this script (``--families``): each
+     in its reference modes on the 1x1 mesh, drawn once by
+     ``init_sharded``, then one device from the same initial weights, held
+     against the one-device run (losses and grad norms at the bf16
+     tolerance, every token equal); one JSON line {"sharded_families":
+     {...}} with step, prefill and decode ms beside the one-device run's,
+     peak memory and the CPU draw's seconds;
   10. one JSON line with each kernel's launches on the main path (phase 3),
      error and times;
   11. the last line: {"ok": true, "device": {...}}.
@@ -123,7 +136,14 @@ against, then the runs that need 4 cards (``phase_wide``): minitron-8b at
 full width trained (3 steps of bf16 8 x 1024) and served (8 x 1024 + 32)
 in ``tp_fsdp`` on (2, 2) against ``tp`` on (1, 4), and phi3.5-moe at 4
 layers in ``tp_ep`` on (2, 2) against ``tp`` on (1, 4), with each rank's
-peak memory and step times; one JSON line {"sharded_wide": {...}}.
+peak memory and step times; one JSON line {"sharded_wide": {...}}; then
+``phase_wide_families``: recurrentgemma-2b at full width and depth
+trained and served in ``tp_fsdp`` on (2, 2) against ``tp`` on (1, 4),
+llava-next-34b served at full width and depth the same two ways, and
+mamba2-130m and seamless-m4t-medium trained in ``dp`` on (4, 1) against
+one card; one JSON line {"sharded_wide_families": {...}}.  To run only
+that part: ``python3 -c 'import chip_smoke as c, sys;
+c.phase_wide_families(); sys.exit(1 if c.FAILURES else 0)'``.
 """
 from __future__ import annotations
 
@@ -144,6 +164,7 @@ from types import SimpleNamespace
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
@@ -186,12 +207,13 @@ from repro_torch.serve_map.measure import (  # noqa: E402
     measure_flash_attention, run_tile_load, service_matmul_tiles,
     tile_request_shapes)
 from repro_torch.optim.adamw import (OptConfig, apply_updates,  # noqa
-                                     init_opt_state)
+                                     init_opt_state, opt_state_specs)
 from repro_torch.serving.engine import make_serve_steps  # noqa: E402
 from repro_torch.training.step import (init, init_sharded,  # noqa: E402
                                        make_train_step)
 from repro_torch.launch.mesh import is_main, per_rank, run_launched  # noqa
 from repro_torch.models.weights import cast_for_compute  # noqa: E402
+from repro_torch.distributed.sharding import distribute  # noqa: E402
 
 # H100 SXM datasheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -1500,7 +1522,8 @@ def held_train(label: str, rep: dict, base: dict, held: str) -> dict:
     rel = [abs(a / b - 1) for a, b in zip(rep["loss"], base["loss"][:n])]
     grel = [abs(a / b - 1) for a, b in zip(rep["grad_norm"],
                                              base["grad_norm"][:n])]
-    ok = len(rel) == n and max(rel + grel) <= SHARDED_LOSS_RTOL
+    finite = all(math.isfinite(v) for v in rep["loss"] + rep["grad_norm"])
+    ok = len(rel) == n and finite and max(rel + grel) <= SHARDED_LOSS_RTOL
     check(f"{label}: losses and grad norms against {held}", ok,
           f"loss {rep['loss']}, max rel diff loss {max(rel):.3g}, grad norm "
           f"{max(grel):.3g} (tol {SHARDED_LOSS_RTOL}); step "
@@ -1634,31 +1657,71 @@ def moe_child(mode: str, layers: int, mp: int, path: str) -> None:
     """``--moe``, in the ranks of a ``torch.distributed.run`` launch:
     phi3.5-moe at full width and ``layers`` layers, bf16 with f32 master
     weights and remat as ``launch.train`` runs it, through the library:
-    the parameters and optimizer state from ``init`` (``mode`` "one": one
-    device, no mesh) or ``init_sharded`` over the (data, model) mesh of
-    the ranks with 'model' = ``mp``; a greedy serve of 8 x 1024 + 32 from
-    the drawn weights cast once to bf16, then 3 train steps of 8 x 1024.
-    Rank 0 writes the report to ``path``."""
+    the parameters and optimizer state from ``init_sharded`` over the
+    (data, model) mesh of the ranks with 'model' = ``mp``; a greedy serve
+    of 8 x 1024 + 32 from the drawn weights cast once to bf16, then 3
+    train steps of 8 x 1024.  ``mode`` "all", on one rank: ``MOE_MODES``
+    on the 1x1 mesh and one device, the model drawn once (``moe_all``).
+    Rank 0 writes the report (for "all", the reports by mode) to
+    ``path``."""
     cfg = get_config(MOE_ARCH).scaled(n_layers=layers)
     dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-    if mode == "one":
+
+    def write(rep) -> None:  # inside the group: rank 0 alone
+        if is_main():
+            with open(path, "w") as f:
+                json.dump(rep, f)
+
+    if mode == "all":
         torch.cuda.set_device(dev)
-        moe_run(cfg, dev, None, None, path)
+        run_launched(1, dev, lambda d, mesh, dmesh: write(moe_all(
+            cfg, d, dmesh, mesh.shape)))
     else:
-        run_launched(mp, dev, lambda d, mesh, dmesh: moe_run(
-            cfg, d, dmesh, mode, path, mesh.shape))
+        run_launched(mp, dev, lambda d, mesh, dmesh: write(moe_run(
+            cfg, d, dmesh, mode, mesh.shape)[0]))
 
 
-def moe_run(cfg, dev, dmesh, mode, path: str, mesh_shape=None) -> None:
+def moe_all(cfg, dev, dmesh, mesh_shape) -> dict:
+    """``MOE_MODES`` on the 1x1 mesh ``dmesh``, then one device: the
+    first mode's weights drawn by ``init_sharded`` and kept in host memory
+    (the card holds no second copy beside the MoE's ~71 GiB peak), the
+    others' copied from there; on the 1x1 mesh every mode places every
+    leaf whole, so the weights are ``init``'s, bit for bit.  The reports
+    by mode ("one" for one device)."""
+    if dmesh.size() != 1:
+        raise ValueError(f"--moe all runs on one rank, not {mesh_shape}")
+    reps, start = {}, None
+    for mode in MOE_MODES + ("one",):
+        mesh = None if mode == "one" else dmesh
+        reps[mode], kept = moe_run(cfg, dev, mesh, None if mesh is None
+                                   else mode, mesh_shape, start)
+        start = start or kept
+    return reps
+
+
+def moe_run(cfg, dev, dmesh, mode, mesh_shape=None, start=None) -> tuple:
+    """One MoE run; its weights drawn (``init``, or ``init_sharded`` over
+    ``dmesh``), or copied from ``start`` (whole leaves in host memory).
+    Returns (the report, a host copy of the drawn weights or None)."""
     B, S = TRAIN[:2]
     SB, P, G = SERVE
     oc = OptConfig(decay_steps=10)  # launch.train's, for a short run
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    if dmesh is None:
+    kept = None
+    if start is not None:
+        params = lm.tree_map(lambda h: h.to(dev), start)
+        opt = init_opt_state(oc, params)
+        if dmesh is not None:
+            specs = lm.param_specs(cfg)
+            params = distribute(params, specs, dmesh, mode)
+            opt = distribute(opt, opt_state_specs(oc, specs), dmesh, mode)
+    elif dmesh is None:
         params, opt = init(cfg, oc, dev)
     else:
         params, _, opt = init_sharded(cfg, oc, dmesh, mode, device=dev)
+        kept = lm.tree_map(lambda p: p.full_tensor().detach().to(
+            "cpu", copy=True), params)
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
     served = cast_for_compute(cfg, params)
@@ -1678,61 +1741,260 @@ def moe_run(cfg, dev, dmesh, mode, path: str, mesh_shape=None) -> None:
         gnorms.append(float(m["grad_norm"]))
         times.append((time.perf_counter() - t) * 1e3)
     peaks = per_rank(torch.cuda.max_memory_allocated(dev))
-    if is_main():
-        with open(path, "w") as f:
-            json.dump({"arch": cfg.name, "layers": cfg.n_layers,
-                       "mode": mode, "mesh": mesh_shape, "init_s": init_s,
-                       "tokens": tokens.tolist(),
-                       "prefill_ms": stats["prefill_ms"],
-                       "decode_ms_per_step": stats["decode_ms_per_step"],
-                       "step_ms": times,
-                       "step_ms_median": statistics.median(times[1:]),
-                       "loss": losses, "grad_norm": gnorms,
-                       "peak_bytes_per_rank": peaks}, f)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "mode": mode,
+            "mesh": mesh_shape if dmesh is not None else None,
+            "init_s": init_s, "drawn": start is None,
+            "tokens": tokens.tolist(), "prefill_ms": stats["prefill_ms"],
+            "decode_ms_per_step": stats["decode_ms_per_step"],
+            "step_ms": times, "step_ms_median": statistics.median(times[1:]),
+            "loss": losses, "grad_norm": gnorms,
+            "peak_bytes_per_rank": peaks}, kept
+
+
+def moe_held(label: str, r: dict, base: dict, held: str) -> dict:
+    """``r`` held against ``base`` (losses and grad norms at
+    ``SHARDED_LOSS_RTOL``, the first token of each sequence equal)."""
+    how = "drawn" if r["drawn"] else "copied"
+    print(f"  {label}: init {r['init_s']:.1f} s ({how}), peak per rank "
+          f"{gib(r['peak_bytes_per_rank'])} GiB, steps {r['step_ms']} ms")
+    return {"train": held_train(label, r, base, held),
+            "serve": held_serve(label, r, base, held, False),
+            "init_s": r["init_s"], "drawn": r["drawn"]}
+
+
+def moe_label(layers: int, mode: str, nproc: int, mp: int) -> str:
+    return (f"{MOE_ARCH} at {layers} layers, bf16, "
+            f"{'one device' if mode == 'one' else f'--mode {mode}'}, "
+            f"{nproc} rank(s), model={mp}")
 
 
 def moe_runs(tmp: str, layers: int, runs, nproc: int) -> list:
     """The ``--moe`` children of ``runs`` ((mode, 'model') pairs, the
     first the baseline) over ``nproc`` ranks, each held against the
-    first: losses and grad norms at ``SHARDED_LOSS_RTOL``, the first
-    token of each sequence equal."""
+    first."""
     reps = []
     for mode, mp in runs:
         path = os.path.join(tmp, f"moe_{layers}_{mode}_{mp}.json")
-        label = (f"{MOE_ARCH} at {layers} layers, bf16, "
-                 f"{'one device' if mode == 'one' else f'--mode {mode}'}, "
-                 f"{nproc} rank(s), model={mp}")
+        label = moe_label(layers, mode, nproc, mp)
         r = run_child(label, [os.path.join(ROOT, "chip_smoke.py"), "--moe"],
-                      nproc if mode != "one" else 1,
-                      [mode, str(layers), str(mp), path], tmp, path,
+                      nproc, [mode, str(layers), str(mp), path], tmp, path,
                       WIDE_TIMEOUT_S)
         if r is None:
             return reps
-        print(f"  {label}: init {r['init_s']:.1f} s, peak per rank "
-              f"{gib(r['peak_bytes_per_rank'])} GiB, steps {r['step_ms']} ms")
         if not reps:
+            print(f"  {label}: init {r['init_s']:.1f} s, peak per rank "
+                  f"{gib(r['peak_bytes_per_rank'])} GiB, steps "
+                  f"{r['step_ms']} ms")
             reps.append({"base": r})
             continue
-        base, held = reps[0]["base"], f"{runs[0][0]}, model={runs[0][1]}"
-        reps.append({"train": held_train(label, r, base, held),
-                     "serve": held_serve(label, r, base, held, False),
-                     "init_s": r["init_s"], "child_s": r["child_s"]})
+        held = f"{runs[0][0]}, model={runs[0][1]}"
+        reps.append({**moe_held(label, r, reps[0]["base"], held),
+                     "child_s": r["child_s"]})
     return reps
 
 
 def phase_moe() -> dict:
     """Phase 9's MoE: phi3.5-moe at full width and 2 layers on one card,
-    one-device and in MOE_MODES on the 1x1 mesh."""
+    in MOE_MODES on the 1x1 mesh and one device, in one child (``--moe
+    all``) that draws the model once; each mesh run held against the
+    one-device run."""
     print(f"== phase 9: {MOE_ARCH} at full width, {MOE_LAYERS} layers, "
           f"one device and {'/'.join(MOE_MODES)}")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="tcm-moe-") as tmp:
-        reps = moe_runs(tmp, MOE_LAYERS, [("one", 1)] +
-                        [(m, 1) for m in MOE_MODES], 1)
-    rep = {"runs": reps, "phase_s": time.perf_counter() - t0}
+        path = os.path.join(tmp, "moe.json")
+        got = run_child(f"{MOE_ARCH} at {MOE_LAYERS} layers (one child, "
+                        f"1 rank)", [os.path.join(ROOT, "chip_smoke.py"),
+                                     "--moe"], 1,
+                        ["all", str(MOE_LAYERS), "1", path], tmp, path,
+                        WIDE_TIMEOUT_S)
+    reps = []
+    if got is not None:
+        base = got["one"]
+        print(f"  {moe_label(MOE_LAYERS, 'one', 1, 1)}: init "
+              f"{base['init_s']:.1f} s (copied), peak per rank "
+              f"{gib(base['peak_bytes_per_rank'])} GiB, steps "
+              f"{base['step_ms']} ms")
+        reps.append({"base": base})
+        reps += [moe_held(moe_label(MOE_LAYERS, mode, 1, 1), got[mode], base,
+                          "one, model=1") for mode in MOE_MODES]
+    rep = {"runs": reps, "child_s": got and got["child_s"],
+           "phase_s": time.perf_counter() - t0}
     print(f"  phase 9 ({MOE_ARCH}) took {rep['phase_s']:.1f} s")
     print(json.dumps({"sharded_moe": rep}))
+    return rep
+
+
+# the other four families over a mesh (phase 9): at full width, bf16 with
+# f32 master weights and remat as launch.train runs them, each one device
+# and in its reference modes (the dry-run's: dp trains and tp_fsdp serves
+# ssm and audio, tp_fsdp runs the others) on the 1x1 mesh, all in one
+# child of torch.distributed.run (``--families``).  family -> (arch,
+# layers (None: all), train mode, serve mode, serve (batch, prompt, gen)).
+# The hybrid serves a 4096 prompt so that its window of 2048 runs the
+# ring; the vlm's 1024 positions are 576 patch embeddings and 448 tokens.
+FAMILIES = {
+    "ssm": ("mamba2-130m", None, "dp", "tp_fsdp", (8, 1024, 32)),
+    "audio": ("seamless-m4t-medium", None, "dp", "tp_fsdp", (8, 1024, 32)),
+    "hybrid": ("recurrentgemma-2b", 8, "tp_fsdp", "tp_fsdp", (4, 4096, 32)),
+    "vlm": ("llava-next-34b", 2, "tp_fsdp", "tp_fsdp", (8, 448, 32)),
+}
+VLM_PATCHES = 576
+FAMILIES_TIMEOUT_S = 600
+
+
+def family_batch(cfg, B: int, P: int, dev) -> dict:
+    """The serve batch: ``launch.serve.make_batch``'s, with the vlm's
+    ``VLM_PATCHES`` embeddings before its ``P`` tokens."""
+    batch = serve.make_batch(cfg, B, P, dev)
+    if cfg.family == "vlm":
+        batch["embeds"] = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(B, VLM_PATCHES, cfg.frontend_dim))).float().to(dev)
+    return batch
+
+
+def family_run(fam: str, dev, dmesh, mesh_shape=None, start=None):
+    """One family's run: the weights drawn by ``init_sharded`` in the
+    train mode over ``dmesh``, or, one device (``dmesh`` None), copied
+    from ``start``: the mesh run's initial weights, which on the 1x1 mesh
+    are whole (``init``'s, bit for bit), so the model is drawn once; then
+    a greedy serve in the serve mode and 3 train steps in the train mode.
+    Returns (times, losses, tokens and peak memory; over a mesh, a copy
+    of the initial weights in host memory, off the card's peak)."""
+    arch, layers, tmode, smode, (SB, P, G) = FAMILIES[fam]
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.scaled(n_layers=layers)
+    oc = OptConfig(decay_steps=10)  # launch.train's, for a short run
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    kept = None
+    if dmesh is None:
+        params = lm.tree_map(lambda h: h.to(dev), start)
+        opt = init_opt_state(oc, params)
+    else:
+        params, _, opt = init_sharded(cfg, oc, dmesh, tmode, device=dev)
+        kept = lm.tree_map(lambda p: p.full_tensor().detach().to(
+            "cpu", copy=True), params)
+    torch.cuda.synchronize(dev)
+    draw_s = time.perf_counter() - t0
+    # on the 1x1 mesh every mode places every leaf alike (Replicate), so
+    # the weights drawn in the train mode serve in the serve mode as drawn
+    tokens, stats = serve.generate(cfg, cast_for_compute(cfg, params),
+                                   family_batch(cfg, SB, P, dev), G, dmesh,
+                                   smode)
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    B, S = TRAIN[0], TRAIN[1] - (VLM_PATCHES if fam == "vlm" else 0)
+    step = make_train_step(cfg, oc, mesh=dmesh, mode=tmode)
+    data = SyntheticTokens(DataConfig(
+        global_batch=B, seq_len=S, vocab=cfg.vocab, frontend=cfg.frontend,
+        frontend_dim=cfg.frontend_dim, frontend_len=VLM_PATCHES))
+    times, losses, gnorms = [], [], []
+    for _ in range(SHARDED_TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        times.append((time.perf_counter() - t) * 1e3)
+    train_peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in lm.tree_leaves(params))
+    del params, opt, step
+    torch.cuda.empty_cache()
+    mesh = None if dmesh is None else mesh_shape
+    return {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+            "draw_s": draw_s,
+            "train": {"mesh": mesh, "mode": tmode if mesh else None,
+                      "batch": [B, S], "step_ms": times,
+                      "step_ms_median": statistics.median(times[1:]),
+                      "loss": losses, "grad_norm": gnorms,
+                      "peak_bytes_per_rank": per_rank(train_peak)},
+            "serve": {"mesh": mesh, "mode": smode if mesh else None,
+                      "batch": [SB, P, G], "tokens": tokens.tolist(),
+                      "prefill_ms": stats["prefill_ms"],
+                      "decode_ms_per_step": stats["decode_ms_per_step"],
+                      "peak_bytes_per_rank": per_rank(serve_peak)}}, kept
+
+
+def families_child(path: str) -> None:
+    """``--families``, in the one rank of a ``torch.distributed.run``
+    launch: every family of ``FAMILIES`` over the 1x1 mesh, then one
+    device from the same initial weights.  Writes the reports to
+    ``path``."""
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(dev)
+
+    def body(d, mesh, dmesh):
+        if mesh.size != 1:
+            raise ValueError(f"--families runs on one rank, not {mesh}")
+        out = {}
+        for fam in FAMILIES:
+            t0 = time.perf_counter()
+            on_mesh, start = family_run(fam, d, dmesh, mesh.shape)
+            one, _ = family_run(fam, d, None, start=start)
+            del start
+            torch.cuda.empty_cache()
+            out[fam] = {"one": one, "mesh": on_mesh,
+                        "run_s": time.perf_counter() - t0}
+        with open(path, "w") as f:
+            json.dump(out, f)
+
+    run_launched(1, dev, body)
+
+
+def phase_families() -> dict:
+    """Phase 9's other families: ssm, audio, hybrid and vlm at full width
+    (depth cut by ``FAMILIES``), one device and in their reference modes
+    on the 1x1 mesh of one card, in one child; each mesh run held against
+    its one-device run (losses and grad norms at ``SHARDED_LOSS_RTOL``,
+    every token equal)."""
+    print("== phase 9: the ssm, audio, hybrid and vlm families at full "
+          "width, one device and their reference modes on the 1x1 mesh")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rep = {}
+    with tempfile.TemporaryDirectory(prefix="tcm-families-") as tmp:
+        path = os.path.join(tmp, "families.json")
+        got = run_child("families (one child, 1 rank)",
+                        [os.path.join(ROOT, "chip_smoke.py"), "--families"],
+                        1, [path], tmp, path, FAMILIES_TIMEOUT_S)
+    for fam, r in (got or {}).items():
+        if fam == "child_s":
+            rep[fam] = r
+            continue
+        one, mesh = r["one"], r["mesh"]
+        label = (f"{fam} {one['arch']} ({one['layers']} layers, "
+                 f"{one['params'] / 1e9:.3f} G parameters)")
+        train_held = held_train(f"{label} train --mode "
+                                f"{mesh['train']['mode']}", mesh["train"],
+                                one["train"], "the one-device run")
+        serve_held = held_serve(f"{label} serve --mode "
+                                f"{mesh['serve']['mode']}", mesh["serve"],
+                                one["serve"], "the one-device run", True)
+        bitwise = (mesh["train"]["loss"] == one["train"]["loss"] and
+                   mesh["train"]["grad_norm"] == one["train"]["grad_norm"])
+        print(f"  {label}: draw {mesh['draw_s']:.1f} s (one device: a "
+              f"copy, {one['draw_s']:.3f} s); losses bitwise equal: "
+              f"{bitwise}; run {r['run_s']:.1f} s")
+        rep[fam] = {"arch": one["arch"], "layers": one["layers"],
+                    "params": one["params"], "bitwise": bitwise,
+                    "draw_s": {"one": one["draw_s"], "mesh": mesh["draw_s"]},
+                    "one": {"train": {k: one["train"][k] for k in (
+                        "loss", "grad_norm", "step_ms", "step_ms_median",
+                        "peak_bytes_per_rank")},
+                        "serve": {k: one["serve"][k] for k in (
+                            "prefill_ms", "decode_ms_per_step",
+                            "peak_bytes_per_rank")}},
+                    "train": train_held, "serve": serve_held,
+                    "run_s": r["run_s"]}
+    rep["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 9 (families) took {rep['phase_s']:.1f} s")
+    print(json.dumps({"sharded_families": rep}))
     return rep
 
 
@@ -1788,6 +2050,67 @@ def phase_wide() -> dict:
     return rep
 
 
+# ``--sharded``'s other families on 4 cards: recurrentgemma-2b at full
+# width and depth (26 layers: 8 groups split over data 2, the two
+# one-layer stacks whole) trained and served in tp_fsdp on (2, 2) against
+# tp on (1, 4); llava-next-34b served in bf16 at full width and depth (60
+# layers, ~34.4 G parameters: its bf16 weights alone are ~69 GB) the same
+# two ways; mamba2-130m and seamless-m4t-medium trained in dp on (4, 1)
+# against one card.
+WIDE_HYBRID = "recurrentgemma-2b"
+WIDE_VLM = "llava-next-34b"
+WIDE_DP = ("mamba2-130m", "seamless-m4t-medium")
+
+
+def wide_pair(tmp: str, run, arch: str, runs, rep: list) -> None:
+    """``run(tmp, nproc, mp, mode, arch, timeout)`` (``sharded_train`` or
+    ``sharded_serve``) for each (ranks, mode, 'model') of ``runs``, each
+    held against the first; the reports appended to ``rep``."""
+    base = None
+    for nproc, mode, mp in runs:
+        r = run(tmp, nproc, mp, mode, arch, WIDE_TIMEOUT_S)
+        if r is None:
+            return
+        if base is None:
+            base, held = r, f"{mode}, {nproc} rank(s), model={mp}"
+            rep.append({"base": r})
+            continue
+        label = f"{arch}, mesh {r['mesh']}, --mode {mode}"
+        rep.append(held_train(label, r, base, held) if run is sharded_train
+                   else held_serve(label, r, base, held, False))
+
+
+def phase_wide_families() -> dict:
+    """``--sharded``'s runs of the ssm, hybrid, vlm and audio families on
+    ``WIDE_CARDS`` cards, each held against its baseline."""
+    cards = torch.cuda.device_count()
+    print(f"== --sharded: {WIDE_HYBRID} and {WIDE_VLM} at full width and "
+          f"depth, {'/'.join(WIDE_DP)} in dp, over {WIDE_CARDS} cards")
+    if cards < WIDE_CARDS:
+        check(f"{WIDE_CARDS} cards for the wide runs", False,
+              f"the machine shows {cards}")
+        return {}
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rep = {"hybrid_train": [], "hybrid_serve": [], "vlm_serve": [],
+           "dp_train": {}}
+    with tempfile.TemporaryDirectory(prefix="tcm-wide-families-") as tmp:
+        pair = [(WIDE_CARDS, mode, mp) for mode, mp in WIDE_RUNS]
+        wide_pair(tmp, sharded_train, WIDE_HYBRID, pair, rep["hybrid_train"])
+        wide_pair(tmp, sharded_serve, WIDE_HYBRID, pair, rep["hybrid_serve"])
+        for arch in WIDE_DP:
+            rep["dp_train"][arch] = []
+            wide_pair(tmp, sharded_train, arch,
+                      [(1, "dp", 1), (WIDE_CARDS, "dp", 1)],
+                      rep["dp_train"][arch])
+        # last: each of its ranks draws all ~34.4 G parameters (~280 s)
+        wide_pair(tmp, sharded_serve, WIDE_VLM, pair, rep["vlm_serve"])
+    rep["phase_s"] = time.perf_counter() - t0
+    print(f"  the wide families took {rep['phase_s']:.1f} s")
+    print(json.dumps({"sharded_wide_families": rep}))
+    return rep
+
+
 def one_device_qwen() -> tuple:
     """One-device ``launch.serve`` and ``launch.train`` (3 steps) at phase
     5's and phase 6's shapes, to hold phase 9 against: (served,
@@ -1822,6 +2145,7 @@ def sharded_alone() -> int:
     torch.cuda.empty_cache()
     phase_sharded(served, trained)
     phase_wide()
+    phase_wide_families()
     return 1 if FAILURES else 0
 
 
@@ -1831,43 +2155,43 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 stays IEEE
-    phase_environment()
-    phase_kernels()
-    if FAILURES:
-        print(f"phase 2 failed: {FAILURES}", file=sys.stderr)
-        return 1
-    main_path = phase_main_path()
-    if FAILURES:
-        print(f"phase 3 failed: {FAILURES}", file=sys.stderr)
-        return 1
-    phase_service()
-    if FAILURES:
-        print(f"phase 4 failed: {FAILURES}", file=sys.stderr)
-        return 1
+    phase_s = {}
 
-    served = phase_served_model()
-    if FAILURES:
-        print(f"phase 5 failed: {FAILURES}", file=sys.stderr)
-        return 1
-    trained = phase_training()
-    if FAILURES:
-        print(f"phase 6 failed: {FAILURES}", file=sys.stderr)
-        return 1
+    def timed(name: str, fn, *args):
+        """``fn(*args)``, its seconds kept under ``name``; None once a
+        phase has failed (the caller stops)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"  phase {name}: {phase_s[name]:.1f} s")
+        if FAILURES:
+            print(f"phase {name} failed: {FAILURES}", file=sys.stderr)
+        return out
 
-    phase_evidence(get_config("qwen1_5_0_5b"))
+    timed("1-2", lambda: (phase_environment(), phase_kernels()))
     if FAILURES:
-        print(f"phase 7 failed: {FAILURES}", file=sys.stderr)
         return 1
-    phase_tools()
+    main_path = timed("3", phase_main_path)
     if FAILURES:
-        print(f"phase 8 failed: {FAILURES}", file=sys.stderr)
         return 1
-    t9 = time.perf_counter()
-    phase_sharded(served, trained["run"])
-    phase_moe()
-    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+    timed("4", phase_service)
     if FAILURES:
-        print(f"phase 9 failed: {FAILURES}", file=sys.stderr)
+        return 1
+    served = timed("5", phase_served_model)
+    if FAILURES:
+        return 1
+    trained = timed("6", phase_training)
+    if FAILURES:
+        return 1
+    timed("7", phase_evidence, get_config("qwen1_5_0_5b"))
+    if FAILURES:
+        return 1
+    timed("8", phase_tools)
+    if FAILURES:
+        return 1
+    timed("9", lambda: (phase_sharded(served, trained["run"]), phase_moe(),
+                        phase_families()))
+    if FAILURES:
         return 1
 
     print("== phase 10: kernels (times summed over the main path's unique "
@@ -1887,6 +2211,7 @@ def main() -> int:
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["tb"] >= s["tf"] else "operations",
             "library_ms": s["library_ms"]})
+    print(json.dumps({"phase_s": phase_s}))
     print(f"  phases 1-10 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     missing = [k["name"] for k in kernels if k["launches"] == 0]
@@ -1906,6 +2231,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--sharded"]:
         sys.exit(sharded_alone())
+    if sys.argv[1:2] == ["--families"]:
+        families_child(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ["--moe"]:
         moe_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
                   sys.argv[5])

@@ -15,8 +15,12 @@ on the current mesh, whatever mesh wrote them (the elastic restore).
 
 Under a process group a DTensor leaf is gathered whole (``full_tensor``,
 a collective) on the calling thread, never in the writer thread, where it
-would race the step's collectives; rank 0 writes, and every rank leaves
-``save`` and ``wait`` only once the write is committed (a barrier).
+would race the step's collectives; rank 0 writes, and only rank 0 copies
+the gathered leaves to host memory: the others drop each on the device
+before the next gather.  Every rank leaves ``save`` and ``wait`` only once
+the write is committed (a barrier).  ``restore_sharded`` reads, places and
+frees one leaf at a time, so no rank holds more than one whole leaf in
+host memory.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..distributed.sharding import full, place
+from ..distributed.sharding import full, is_dtensor, place
 from ..models.lm import tree_leaves, tree_map, tree_unflatten, tree_zip
 
 
@@ -66,7 +70,16 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def _flatten(tree) -> Dict[str, np.ndarray]:
-    return {f"leaf_{i}": _host(x) for i, x in enumerate(tree_leaves(tree))}
+    """The writer's host copy of every leaf, by name.  Every other rank
+    joins each DTensor leaf's gather (a collective) and drops the result
+    on its device before the next one: it keeps no host copy."""
+    if _writer():
+        return {f"leaf_{i}": _host(x)
+                for i, x in enumerate(tree_leaves(tree))}
+    for x in tree_leaves(tree):
+        if is_dtensor(x):
+            full(x)
+    return {}
 
 
 class CheckpointManager:
@@ -175,12 +188,23 @@ class CheckpointManager:
                         shardings) -> Tuple[Any, Dict]:
         """``restore``, with every array placed by its ``NamedSharding`` in
         ``shardings`` (``like_tree``'s structure) on that sharding's
-        ``DeviceMesh``: each rank reads the file and keeps its shards on
-        its own device, whatever mesh wrote it."""
-        host_tree, extra = self.restore(step, like_tree)
-        leaves = [place(_tensor(a).to(_device(s.mesh)), s)
-                  for a, s in tree_zip(host_tree, shardings)]
-        return tree_unflatten(like_tree, leaves), extra
+        ``DeviceMesh``: each rank reads the file one leaf at a time, keeps
+        its shards on its own device and frees the leaf before reading
+        the next, whatever mesh wrote it.  Raises ValueError unless the
+        file holds one array per leaf of ``like_tree``."""
+        d = self.dir / f"step_{step:08d}"
+        meta = json.loads((d / "meta.json").read_text())
+        pairs = list(tree_zip(like_tree, shardings))
+        leaves = []
+        # ``np.load`` of an npz reads a member only when it is indexed
+        with np.load(d / "arrays.npz") as data:
+            if len(data.files) != len(pairs):
+                raise ValueError(f"{len(data.files)} leaves for a tree of "
+                                 f"{len(pairs)}")
+            for i, (_, s) in enumerate(pairs):
+                leaves.append(place(_tensor(data[f"leaf_{i}"])
+                                    .to(_device(s.mesh)), s))
+        return tree_unflatten(like_tree, leaves), meta.get("extra", {})
 
 
 def _device(mesh) -> torch.device:

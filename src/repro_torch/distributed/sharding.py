@@ -229,17 +229,21 @@ def full(x):
     return x.full_tensor() if is_dtensor(x) else x
 
 
-# what the model runs over a mesh: these families, in every mode of RULES
-SHARDED_FAMILIES = ("dense", "moe")
+# what the model runs over a mesh: every family, in every mode of RULES
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 SHARDED_MODES = tuple(RULES)
 
 
 def check_sharded(cfg, mode: str, mesh=None) -> None:
     """Raises ValueError unless the model runs ``cfg`` over a mesh in
     ``mode``, and, given ``mesh``, unless the mesh extent that ``mode``
-    shards the layer stack over divides the stack.  (On such a mesh the
-    reference drops the 'layers' mapping, hands the axis to the stack's
-    'embed' dim, and its jit'd step then refuses the layout.)"""
+    shards the layer stacks over divides each stack of more than one
+    layer (``lm._stack_groups``).  A one-layer stack keeps its layer
+    whole and its 'embed' takes the axis instead, as the reference lays
+    it out by ``shardings_for(..., like=)``; a longer stack the extent
+    does not divide the reference's jit'd step refuses."""
+    from ..models.lm import _stack_groups
+
     if cfg.family not in SHARDED_FAMILIES or mode not in SHARDED_MODES:
         raise ValueError(
             f"the sharded path runs the {'/'.join(SHARDED_FAMILIES)} "
@@ -250,11 +254,12 @@ def check_sharded(cfg, mode: str, mesh=None) -> None:
     mesh = as_mesh(mesh)
     axes = spec_to_pspec(("layers",), RULES[mode], mesh)[0]
     n = 1 if axes is None else _extent(mesh, axes)
-    if cfg.n_layers % n:
-        raise ValueError(
-            f"mode {mode!r} shards the layer stack over {axes!r} of extent "
-            f"{n}, which does not divide {cfg.name}'s {cfg.n_layers} "
-            f"layers")
+    for kinds, count in _stack_groups(cfg):
+        if count > 1 and count % n:
+            raise ValueError(
+                f"mode {mode!r} shards the layer stacks over {axes!r} of "
+                f"extent {n}, which does not divide {cfg.name}'s "
+                f"{'/'.join(kinds)} stack of {count} layers")
 
 
 def _extent(mesh: Mesh, entry) -> int:
@@ -286,8 +291,33 @@ def _whole_along(pl, dim: int) -> Tuple:
 
 def redistribute(x, pspec: PartitionSpec):
     """The DTensor ``x`` laid out by ``pspec`` on its own mesh (itself if
-    it already is)."""
-    return _moved(x, placements(pspec, x.device_mesh))
+    it already is and no gradient flows back through it).  Where a
+    gradient will flow back over a mesh of more than one device, the
+    layout is applied even when no data moves, so that the gradient is
+    laid out by ``pspec`` too: a product whose output is already whole
+    along its sequence (an MLP whose 'mlp' axis is not split) gets its
+    gradient whole, not split by the next layer's ``act_seq``, which a
+    strided shard would follow.  (On one device every placement is
+    ``Replicate``, and the autograd graph stays the one-device one, so
+    are its sums.)"""
+    pl = placements(pspec, x.device_mesh)
+    if (x.requires_grad and torch.is_grad_enabled()
+            and x.device_mesh.size() > 1):
+        return x.redistribute(x.device_mesh, pl)
+    return _moved(x, pl)
+
+
+def pinned(x):
+    """``x`` itself, except that where a gradient flows back over a mesh
+    of more than one device it is laid out as ``x`` is (a redistribution
+    to ``x``'s own placements: nothing moves forward).  Before a reshape
+    that merged a dim the mesh does not split evenly (10 heads' columns
+    over 4 ranks), the gradient must arrive whole along it, not split as
+    the next product's backward leaves it."""
+    if (is_dtensor(x) and x.requires_grad and torch.is_grad_enabled()
+            and x.device_mesh.size() > 1):
+        return x.redistribute(x.device_mesh, x.placements)
+    return x
 
 
 def constrain(x, spec: Spec):
@@ -475,6 +505,59 @@ class _LayerGather(torch.autograd.Function):
         if mine:
             out[j] = g
         return _from_local(out, mesh, pl, shape), None
+
+
+def batch_local(fn, x, params: Dict, state: Optional[Dict] = None):
+    """``fn(x, params, state) -> (out, new_state)`` on plain tensors, run on
+    each rank's share of the batch under ``local_map``: every parameter
+    whole on every rank, ``x`` (B, S, d) with its sequence whole, the
+    batch split as the state's batch is (the cache rule), or without a
+    state as the mode's 'batch' rule splits it.  The recurrent blocks
+    (RG-LRU, SSD) mix channels in their gates and scan the sequence, so a
+    rank runs the whole block on its rows, as the reference's compiled
+    step does per device once GSPMD has gathered the channels.  The
+    parameters' gradients are partial sums over the mesh dims that split
+    the batch, reduced by the train step's constraint.  Returns (out with
+    the batch's split, the new state laid out as ``state`` is, or None
+    without a state)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if active() is None:
+        raise RuntimeError("DTensor recurrent blocks run inside "
+                           "activation_sharding_ctx")
+    mesh = x.device_mesh
+    keys = sorted(params)
+    skeys = [] if state is None else sorted(state)
+    if state is None:
+        ref = placements(spec_to_pspec(("batch", None, None),
+                                       RULES[active()[1]], mesh,
+                                       dims=tuple(x.shape)), mesh)
+    else:
+        ref = state[skeys[0]].placements
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in ref)
+    whole = (Replicate(),) * mesh.ndim
+    summed = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+
+    def per_rank(xl, *rest):
+        pl = dict(zip(keys, rest[:len(keys)]))
+        st = dict(zip(skeys, rest[len(keys):])) if skeys else None
+        out, new = fn(xl, pl, st)
+        return (out,) if st is None else (out, *(new[k] for k in skeys))
+
+    n_out = 1 + len(skeys)
+    run = local_map(per_rank, out_placements=(rows,) * n_out,
+                    in_placements=(rows, *([whole] * len(keys)),
+                                   *([rows] * len(skeys))),
+                    in_grad_placements=(rows, *([summed] * len(keys)),
+                                        *([rows] * len(skeys))),
+                    device_mesh=mesh, redistribute_inputs=True)
+    outs = run(x, *(params[k] for k in keys),
+               *(state[k] for k in skeys))
+    if state is None:
+        return outs[0], None
+    return outs[0], {k: _moved(v, state[k].placements)
+                     for k, v in zip(skeys, outs[1:])}
 
 
 def seq_replicated_like(upd, buf):

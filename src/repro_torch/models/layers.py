@@ -339,6 +339,22 @@ def update_slice(buf: torch.Tensor, upd: torch.Tensor,
     return buf
 
 
+def ring_fill(buf: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """The ring ``buf`` (B, W, ...) filled in place with the last W rows
+    of ``upd`` (B, S >= W, ...), row ``t`` at slot ``t % W``: the
+    reference's ``zeros_like(buf).at[:, slots].set(upd[:, last])``, whose
+    slots cover the ring.  A DTensor ``buf`` is written on each rank's own
+    shard of its slots, as ``update_slice`` writes."""
+    W, S = buf.shape[1], upd.shape[1]
+    local, lo = buf, 0
+    if sharding.is_dtensor(buf):
+        upd = sharding.seq_replicated_like(upd, buf).to_local()
+        local, lo = buf.to_local(), sharding.local_offset(buf, 1)
+    ring = torch.roll(upd[:, S - W:], S % W, dims=1)
+    local.copy_(ring[:, lo:lo + local.shape[1]])
+    return buf
+
+
 def attention_block(cfg, p: Params, x, positions, *, cache=None,
                     causal=True, window=0, kv_from=None):
     """Full attention block; returns (out, new_cache).
@@ -355,8 +371,9 @@ def attention_block(cfg, p: Params, x, positions, *, cache=None,
     q, k, v = _qkv(cfg, p, x, kv_from)
 
     if kv_from is not None:
-        out = _attend(q, k, v, causal=False)
-        return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt), None
+        out = sharding.pinned(_attend(q, k, v, causal=False)
+                              .reshape(B, S, cfg.q_dim))
+        return constrain(out @ p["wo"].to(dt), ("batch", None, None)), None
 
     new_cache = None
     if cache is None:
@@ -384,17 +401,17 @@ def attention_block(cfg, p: Params, x, positions, *, cache=None,
                 assert S >= window, "prefill shorter than window"
                 out = _attend(q, k, v, causal=True, window=window,
                               q_offset=0)
-                last = torch.arange(S - window, S, device=x.device)
-                slots = last % window
-                ck.zero_()[:, slots] = k[:, last].to(dt)
-                cv.zero_()[:, slots] = v[:, last].to(dt)
+                ring_fill(ck, k.to(dt))
+                ring_fill(cv, v.to(dt))
         else:
             update_slice(ck, k.to(dt), idx)
             update_slice(cv, v.to(dt), idx)
             out = _attend(q, ck, cv, causal=True, window=window,
                           q_offset=idx, kv_valid=idx + S)
         new_cache = {"k": ck, "v": cv, "idx": idx + S}
-    out = out.reshape(B, S, cfg.q_dim)
+    # heads merged back: where they were not split over ranks, the
+    # gradient must come back whole along them (``sharding.pinned``)
+    out = sharding.pinned(out.reshape(B, S, cfg.q_dim))
     # the MLP's output layout: the partial sums reduced, and the gradient
     # back through this product arrives with a whole sequence
     return constrain(out @ p["wo"].to(dt), ("batch", None, None)), new_cache
@@ -404,22 +421,29 @@ def cross_attention_cached(cfg, p: Params, x, ck, cv):
     """Cross-attention against precomputed (cached) memory K/V."""
     B, S, _ = x.shape
     dt = cfg.torch_dtype
-    q = x @ p["wq"].to(dt)
+    q = _whole_seq(x) @ p["wq"].to(dt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
-    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
-    out = _attend(q, ck, cv, causal=False)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt)
+    q = sharding.splittable(q, -1, cfg.n_heads)
+    q = constrain_any(q.reshape(B, S, cfg.n_heads, cfg.d_head),
+                      [("batch", None, "heads", None),
+                       ("batch", "act_seq", None, None)])
+    out = sharding.pinned(_attend(q, ck, cv, causal=False)
+                          .reshape(B, S, cfg.q_dim))
+    return constrain(out @ p["wo"].to(dt), ("batch", None, None))
 
 
 def cross_kv(cfg, p: Params, memory):
     dt = cfg.torch_dtype
     B, Sm, _ = memory.shape
+    memory = _whole_seq(memory)
     k = memory @ p["wk"].to(dt)
     v = memory @ p["wv"].to(dt)
     if cfg.qkv_bias:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    k = sharding.splittable(k, -1, cfg.n_kv_heads)
+    v = sharding.splittable(v, -1, cfg.n_kv_heads)
     return (k.reshape(B, Sm, cfg.n_kv_heads, cfg.d_head),
             v.reshape(B, Sm, cfg.n_kv_heads, cfg.d_head))
 

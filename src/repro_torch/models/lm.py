@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import constrain, layer, map_specs
+from ..distributed.sharding import (constrain, is_dtensor, layer,
+                                    map_specs)
 from .config import ModelConfig
 from .layers import (_init, _whole_seq, attention_block, attention_params,
                      cross_attention_cached, cross_kv, embedding_params, mlp,
@@ -418,10 +419,20 @@ def _head(cfg, params, x):
     return constrain((x @ w).float(), ("batch", "act_seq", "vocab"))
 
 
+def _frontend(cfg, params, feats):
+    """The frontend's embeddings (B, T, d) of ``feats`` (B, T, f): the
+    projection whole on every rank (its 'embed' is split over 'data'
+    under ``tp_fsdp``, as the batch is), the result with its sequence
+    whole, as every projection's (the first layer splits it), so the
+    gradient back through the product arrives whole too."""
+    dt = cfg.torch_dtype
+    w = constrain(params["frontend_proj"], (None, None)).to(dt)
+    return constrain(feats.to(dt) @ w, ("batch", None, None))
+
+
 def _encoder_out(cfg, params, enc_frames):
     B = enc_frames.shape[0]
-    dt = cfg.torch_dtype
-    fe = enc_frames.to(dt) @ params["frontend_proj"].to(dt)
+    fe = _frontend(cfg, params, enc_frames)
     pos = torch.arange(fe.shape[1], device=fe.device)[None, :].expand(B, -1)
     kinds, count = _stack_groups(cfg)[0]
     enc_x, _, _ = _apply_group(cfg, kinds, count, params["groups"][0],
@@ -435,9 +446,11 @@ def _trunk(cfg, params, tokens, embeds=None, enc_frames=None, caches=None,
     x = _embed(cfg, params, tokens)
     B = x.shape[0]
     if cfg.family == "vlm" and embeds is not None:
-        dt = cfg.torch_dtype
-        fe = embeds.to(dt) @ params["frontend_proj"].to(dt)
-        x = torch.cat([fe, x], dim=1)
+        # joined with both sequences whole on every rank, then laid out
+        # as the residual stream again
+        fe = _frontend(cfg, params, embeds)
+        x = constrain(torch.cat([fe, _whole_seq(x)], dim=1),
+                      ("batch", "act_seq", None))
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, -1)
@@ -494,6 +507,9 @@ def loss_fn(cfg: ModelConfig, params: Params, batch) -> Tuple[torch.Tensor,
         embeds=batch.get("embeds"), enc_frames=batch.get("enc_frames"))
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:  # vlm: loss on text tail only
+        # the sequence whole first (``act_seq`` may split it over ranks),
+        # and the vocabulary whole, as the text-only logits hold it
+        logits = constrain(logits, ("batch", None, None))
         logits = logits[:, -labels.shape[1]:]
     lse = torch.logsumexp(logits, dim=-1)
     # a negative label is masked below; clamp it only to gather something
@@ -562,8 +578,12 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache):
         cross = params["groups"][dec_group][0]["cross"]
         layers = cache["groups"][dec_group]
         for i in range(count):
-            xk, xv = cross_kv(cfg, tree_map(lambda a: a[i], cross), enc_out)
-            layers[i] = (dict(layers[i][0], xk=xk, xv=xv),)
+            xk, xv = cross_kv(cfg, tree_map(lambda a: layer(a, i), cross),
+                              enc_out)
+            c = layers[i][0]
+            # over a mesh the memory's K/V take the placed buffers' layout
+            layers[i] = (dict(c, xk=_like(xk, c["xk"]),
+                              xv=_like(xv, c["xv"])),)
         # cross K/V are now cached; skip re-encoding inside forward
         x, cache, _ = _trunk(cfg, params, tokens, caches=cache)
     else:
@@ -574,6 +594,14 @@ def prefill(cfg: ModelConfig, params: Params, batch, cache):
         s_total += batch["embeds"].shape[1]
     cache["pos"] = cache["pos"] + s_total
     return _head(cfg, params, x[:, -1:])[:, 0], cache
+
+
+def _like(x, buf):
+    """``x`` laid out as the placed buffer ``buf`` is (``x`` itself off a
+    mesh)."""
+    if not is_dtensor(buf):
+        return x
+    return x.redistribute(buf.device_mesh, buf.placements)
 
 
 def decode_step(cfg: ModelConfig, params: Params, tok, cache):

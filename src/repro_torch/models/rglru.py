@@ -17,6 +17,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding
 from .layers import _init
 
 C_FACTOR = 8.0
@@ -64,7 +65,12 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_block(cfg, p, x, state=None):
     """Returns (out, new_state); state = dict(h=(B,W) f32, conv=(B,K-1,W)).
     A state with S > 1 feeds its conv window but not its ``h`` (the
-    reference's convention: prefill starts the recurrence from zero)."""
+    reference's convention: prefill starts the recurrence from zero).
+    Over a mesh each rank runs the block on its rows of the batch
+    (``sharding.batch_local``)."""
+    if sharding.is_dtensor(x):
+        return sharding.batch_local(
+            lambda xl, pl, st: rglru_block(cfg, pl, xl, st), x, p, state)
     dt = cfg.torch_dtype
     S = x.shape[1]
     u = x @ p["w_x"].to(dt)  # (B,S,W)

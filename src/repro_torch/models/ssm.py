@@ -13,6 +13,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding
 from .layers import _init
 
 
@@ -82,7 +83,12 @@ def ssd_chunked(cfg, x, Bm, Cm, dtm, A):
         cum = torch.cumsum(logdec, dim=1)
         # intra-chunk: y_j += sum_{i<=j} C_j.B_i dt_i x_i e^{cum_j - cum_i}
         decay = cum[:, :, None, :] - cum[:, None, :, :]  # (B,j,i,H)
-        gamma = torch.where(causal[None, :, :, None], torch.exp(decay), 0.0)
+        # masked before the exp, not after: above the diagonal the decay
+        # is a sum of positive terms, whose exp overflows at the published
+        # chunk of 256, and the reference's where(causal, exp(decay), 0)
+        # then has a NaN gradient (0 * inf); the values are the same
+        gamma = torch.exp(torch.where(causal[None, :, :, None], decay,
+                                      -math.inf))
         cb = torch.einsum("bjn,bin->bji", ck, bk)
         y_intra = torch.einsum("bji,bjih,bih,bihp->bjhp", cb, gamma, dk, xk)
         # inter-chunk: y_j += C_j . (h * e^{cum_j})
@@ -101,7 +107,13 @@ def ssm_block(cfg, p, x, state=None):
     """Full Mamba2 block.  state = dict(h=(B,H,N,P), conv=(B,K-1,C)) for
     decode; None for training/prefill.  A state with S > 1 feeds its conv
     window but not its ``h`` (the reference's convention: prefill starts
-    the recurrence from zero).  Returns (out, new_state)."""
+    the recurrence from zero).  Returns (out, new_state).  Over a mesh
+    each rank runs the block on its rows of the batch
+    (``sharding.batch_local``): the projection's z | xBC | dt columns and
+    the heads' parameters are whole there."""
+    if sharding.is_dtensor(x):
+        return sharding.batch_local(
+            lambda xl, pl, st: ssm_block(cfg, pl, xl, st), x, p, state)
     Bsz, S, D = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     d_inner = H * P

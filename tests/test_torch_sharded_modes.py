@@ -784,20 +784,6 @@ def test_reference_cannot_run_what_tp_fsdp_refuses(runs):
     assert rep["failed"] and "divisible" in rep["error"], rep["error"]
 
 
-@pytest.mark.parametrize("family,arch", [
-    ("ssm", "mamba2-130m"), ("hybrid", "recurrentgemma-2b"),
-    ("audio", "seamless-m4t-medium"), ("vlm", "llava-next-34b")])
-def test_other_families_are_refused_over_a_mesh(family, arch):
-    from repro_torch.configs import get_config
-    from repro_torch.distributed.sharding import SHARDED_MODES, check_sharded
-
-    cfg = get_config(arch, smoke=True)
-    assert cfg.family == family
-    for mode in SHARDED_MODES:
-        with pytest.raises(ValueError, match="dense/moe families"):
-            check_sharded(cfg, mode)
-
-
 # --------------------------------------------------------------------------
 # the launchers under torch.distributed.run
 # --------------------------------------------------------------------------
