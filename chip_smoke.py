@@ -88,8 +88,17 @@ Phases (each prints its own lines; any failure exits nonzero):
      ``torch.cuda.max_memory_allocated``, FLOPs equal to
      ``FlopCounterMode`` over the real run, the step's time (the median of
      5 runs after a warm-up) beside the roofline's bound; (d) the example twins ``kernel_autotune`` (must
-     print ``(OK)``), ``train_e2e`` (20 steps) and ``quickstart``; one
-     JSON line {"tools": {...}};
+     print ``(OK)``), ``train_e2e`` (20 steps) and ``quickstart``; (e)
+     the dry-run over the reference's production meshes through its CLI,
+     each cell in a child process of its own, side by side: rank 0 of a
+     fake group of 256 or 512 ranks, fake tensors on the card, for
+     qwen1.5-0.5b's train_4k on the pod mesh (dp) and minitron-8b's
+     decode_32k on the pod and multipod meshes (tp_fsdp, its 32 layers
+     gathered over 'data' and over ('pod', 'data')), each through
+     ``roofline.analyze_cell``: no error, 256 or 512 devices, collective
+     bytes above 0, the collective term beside compute and memory
+     (timed as its own phase, "8e"); JSON lines {"tools": {...}} and
+     {"mesh_dryrun": {...}};
   9. the sharded path (``repro_torch.launch.train``/``serve`` over a
      ``torch.distributed`` mesh, ``distributed.sharding``'s DTensor
      layouts; torch ops, no kernel of this repo): children of
@@ -141,9 +150,19 @@ peak memory and step times; one JSON line {"sharded_wide": {...}}; then
 trained and served in ``tp_fsdp`` on (2, 2) against ``tp`` on (1, 4),
 llava-next-34b served at full width and depth the same two ways, and
 mamba2-130m and seamless-m4t-medium trained in ``dp`` on (4, 1) against
-one card; one JSON line {"sharded_wide_families": {...}}.  To run only
-that part: ``python3 -c 'import chip_smoke as c, sys;
-c.phase_wide_families(); sys.exit(1 if c.FAILURES else 0)'``.
+one card (llava-next-34b drawn once per layout and served in f32, where
+every first token must equal the baseline's, then in bf16, where a first
+token may part only where the top-1 minus top-2 logit gap is within
+twice the layouts' max |diff| of the first logits); one JSON line
+{"sharded_wide_families": {...}}.  To run only that part: ``python3 -c
+'import chip_smoke as c, sys; c.phase_wide_families(); sys.exit(1 if
+c.FAILURES else 0)'``.  Last, ``phase_mesh_dryrun_vs_card``: rank 0's
+fake trace (the dry-run over a fake group of 4) of phase 9's qwen train
+step in tp_fsdp on (2, 2) and tp on (1, 4), held against the same
+counters over the real step on rank 0 of 4 cards (FLOPs and each kind's
+collective bytes equal, the traced peak within 10% of
+``torch.cuda.max_memory_allocated``); one JSON line {"dryrun_vs_cards":
+[...]}.
 """
 from __future__ import annotations
 
@@ -208,10 +227,12 @@ from repro_torch.serve_map.measure import (  # noqa: E402
     tile_request_shapes)
 from repro_torch.optim.adamw import (OptConfig, apply_updates,  # noqa
                                      init_opt_state, opt_state_specs)
-from repro_torch.serving.engine import make_serve_steps  # noqa: E402
+from repro_torch.serving.engine import (make_serve_steps,  # noqa: E402
+                                        place_cache)
 from repro_torch.training.step import (init, init_sharded,  # noqa: E402
                                        make_train_step)
-from repro_torch.launch.mesh import is_main, per_rank, run_launched  # noqa
+from repro_torch.launch.mesh import (Mesh, is_main, per_rank,  # noqa
+                                     run_launched)
 from repro_torch.models.weights import cast_for_compute  # noqa: E402
 from repro_torch.distributed.sharding import distribute  # noqa: E402
 
@@ -1229,6 +1250,15 @@ TOOLS_STEPS = [Cell("train", 8, 1024), Cell("prefill", 8, 1024, 1056),
 TOOLS_REPEATS = 5  # timed runs of each held step, after a warm-up
 PEAK_TOL = 0.10  # dry-run peak against torch.cuda.max_memory_allocated
 E2E_STEPS = 20  # train_e2e's 300 steps, cut for time
+# (e): the dry-run over the reference's production meshes, rank 0 of 256
+# or 512: qwen's train_4k in dp (one row a rank) and minitron-8b's
+# decode_32k in tp_fsdp, its 32 layers split over data 16 and over
+# ('pod', 'data') 32 (prefill_32k is left out: its one-device trace alone
+# takes minutes)
+MESH_CELLS = (("qwen1.5-0.5b", "train_4k", "pod"),
+              ("minitron-8b", "decode_32k", "pod"),
+              ("minitron-8b", "decode_32k", "multipod"))
+MESH_DRYRUN_TIMEOUT_S = 300
 
 
 def free_port() -> int:
@@ -1429,6 +1459,66 @@ def check_examples(tmp: str) -> dict:
     finally:
         os.chdir(cwd)
     return out
+
+
+def check_mesh_dryrun(tmp: str) -> dict:
+    """(e): ``MESH_CELLS`` through the dry-run's CLI, each as rank 0 of
+    the reference's 256- or 512-device mesh over a fake group, fake
+    tensors on the card, in child processes of their own run side by side
+    (one process traces one cell: DTensor's fake replay is host-bound and
+    single-threaded); each through ``roofline.analyze_cell``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = [(arch, shape, mesh, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", tmp], cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for arch, shape, mesh in MESH_CELLS]
+    rows = []
+    for arch, shape, mesh, proc in procs:
+        try:
+            log, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log = proc.communicate()[0] + "(killed)"
+        path = Path(tmp) / f"{arch}__{shape}__{mesh}.json"
+        res = json.loads(path.read_text()) if path.exists() else {
+            "error": f"exit {proc.returncode}: {log[-1500:]}"}
+        n = {"pod": 256, "multipod": 512}[mesh]
+        ok = ("error" not in res and res["n_devices"] == n
+              and res["hlo"]["total_collective_bytes"] > 0)
+        if not ok:
+            check(f"dry-run {arch} {shape} on {mesh}", False,
+                  res.get("error", json.dumps(res.get("hlo"))))
+            rows.append({"arch": arch, "shape": shape, "mesh": mesh,
+                         "dryrun": res})
+            continue
+        roof = analyze_cell(path)
+        mem = res["memory_per_device"]
+        check(f"dry-run {arch} {shape} on {res['mesh']} ({n} devices, "
+              f"mode {res['mode']})", True,
+              f"traced layers {res['traced_layers']} in "
+              f"{res['hlo']['trace_s']} s, {res['hlo']['ops']} ops; per "
+              f"device: {res['hlo']['per_device_flops']:.6g} FLOPs, peak "
+              f"{mem['peak_live_bytes']} B, collective bytes "
+              f"{res['hlo']['collective_bytes']}; roofline compute "
+              f"{roof['compute_s']:.4g} s, memory {roof['memory_s']:.4g} s, "
+              f"collective {roof['collective_s']:.4g} s "
+              f"({roof['dominant']})")
+        rows.append({"arch": arch, "shape": shape, "mesh": mesh,
+                     "dryrun": res, "roofline": roof})
+    return {"cells": rows, "wall_s": time.perf_counter() - t0}
+
+
+def phase_mesh_dryrun() -> None:
+    """Phase 8(e), timed on its own: ``check_mesh_dryrun``."""
+    print("== phase 8(e): the dry-run over the reference's production "
+          "meshes (rank 0 of 256 and 512)")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="tcm-mesh-dryrun-") as tmp:
+        rep = check_mesh_dryrun(tmp)
+    print(f"  phase 8(e) took {rep['wall_s']:.1f} s")
+    print(json.dumps({"mesh_dryrun": rep}))
 
 
 def phase_tools() -> None:
@@ -2080,6 +2170,117 @@ def wide_pair(tmp: str, run, arch: str, runs, rep: list) -> None:
                    else held_serve(label, r, base, held, False))
 
 
+# llava-next-34b's two layouts (WIDE_RUNS, baseline first), each served
+# from one draw in f32 and then in bf16: f32 must give every first token of
+# the baseline; in bf16 a first token may part only where the baseline's
+# top-1 minus top-2 logit gap is within twice the two layouts' max |diff|
+# of that sequence's first logits (the least change that can flip it)
+VLM_DTYPES = ("float32", "bfloat16")
+
+
+def vlm_child(mode: str, mp: int, path: str) -> None:
+    """``--vlm MODE MP PATH``, in the ranks of a ``torch.distributed.run``
+    launch: ``WIDE_VLM`` at full width and depth drawn once by
+    ``init_sharded`` over the (data, model) mesh with 'model' = ``mp``,
+    then for each of ``VLM_DTYPES`` (f32 first, as drawn; then cast to
+    bf16 and the f32 copy freed) one prefill of ``launch.serve``'s prompts
+    (``SERVE``) whose first logits rank 0 writes to ``PATH.<dtype>.npy``,
+    and the greedy serve of ``launch.serve``.  Rank 0 writes the report
+    to ``path``."""
+    B, P, G = SERVE
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+
+    def body(d, mesh, dmesh):
+        cfg = get_config(WIDE_VLM)
+        t0 = time.perf_counter()
+        params = init_sharded(cfg, None, dmesh, mode, device=d)[0]
+        rep = {"mesh": mesh.shape, "mode": mode, "draw_s":
+               time.perf_counter() - t0}
+        for dt in VLM_DTYPES:
+            c = cfg.scaled(dtype=dt)
+            params = cast_for_compute(c, params)  # f32 keeps the leaves
+            torch.cuda.empty_cache()
+            batch = serve.make_batch(c, B, P, d)
+            prefill_step, _ = make_serve_steps(c, dmesh, mode)
+            cache = place_cache(c, lm.init_cache(
+                c, B, P + G + batch["embeds"].shape[1], d), dmesh)
+            first, _ = prefill_step(params, batch, cache)
+            del cache
+            if is_main():
+                np.save(f"{path}.{dt}.npy", first.float().cpu().numpy())
+            del first
+            tokens, stats = serve.generate(c, params, batch, G, dmesh, mode)
+            rep[dt] = {"tokens": tokens.tolist(),
+                       "prefill_ms": stats["prefill_ms"],
+                       "decode_ms_per_step": stats["decode_ms_per_step"],
+                       "peak_bytes_per_rank": per_rank(stats["peak_bytes"])}
+        if is_main():
+            with open(path, "w") as f:
+                json.dump(rep, f)
+
+    run_launched(mp, dev, body)
+
+
+def vlm_layouts(tmp: str) -> dict:
+    """``WIDE_VLM`` served in each layout of ``WIDE_RUNS`` (one child
+    each, ``--vlm``), held against the first: per dtype the share of
+    equal tokens, and per sequence whether the first token parts, the two
+    layouts' max |diff| of the first logits and the baseline's top-1
+    minus top-2 gap.  f32: every first token equal; bf16: a first token
+    parts only where the gap is at most twice the max |diff|."""
+    reps, logits = [], []
+    for mode, mp in WIDE_RUNS:
+        path = os.path.join(tmp, f"vlm_{mode}_{mp}.json")
+        r = run_child(f"{WIDE_VLM} serve {SERVE[0]}x{SERVE[1]} + {SERVE[2]} "
+                      f"in f32 then bf16, {WIDE_CARDS} ranks, model={mp}, "
+                      f"--mode {mode}", [os.path.join(ROOT, "chip_smoke.py"),
+                                         "--vlm", mode, str(mp)],
+                      WIDE_CARDS, [path], tmp, path, WIDE_TIMEOUT_S)
+        if r is None:
+            return {"runs": reps}
+        reps.append(r)
+        logits.append({dt: np.load(f"{path}.{dt}.npy") for dt in VLM_DTYPES})
+    base, other = reps
+    out = {"runs": reps}
+    for dt in VLM_DTYPES:
+        want, got = (torch.tensor(r[dt]["tokens"]) for r in reps)
+        lb, lo = (torch.from_numpy(x[dt]) for x in logits)
+        diff = (lb - lo).abs().amax(-1)
+        top2 = lb.topk(2, -1).values
+        gap = top2[:, 0] - top2[:, 1]
+        parts = got[:, 0] != want[:, 0]
+        stats = {"tokens_equal_share": (got == want).float().mean().item(),
+                 "first_parts": parts.tolist(),
+                 "first_logits_max_abs_diff": diff.tolist(),
+                 "base_gap": gap.tolist(),
+                 "gap_below_diff": (gap < diff).tolist(),
+                 "prefill_ms": [r[dt]["prefill_ms"] for r in reps],
+                 "decode_ms_per_step": [r[dt]["decode_ms_per_step"]
+                                        for r in reps],
+                 "peak_bytes_per_rank": [r[dt]["peak_bytes_per_rank"]
+                                         for r in reps]}
+        out[dt] = stats
+        label = (f"{WIDE_VLM} {dt}, mesh {other['mesh']} --mode "
+                 f"{other['mode']} against {base['mesh']} --mode "
+                 f"{base['mode']}")
+        detail = (f"{stats['tokens_equal_share']:.4f} of tokens equal, "
+                  f"first tokens part at {parts.nonzero().flatten().tolist()}"
+                  f"; per sequence max |diff| of the first logits "
+                  f"{[float(f'{v:.4g}') for v in diff.tolist()]}, top-1 "
+                  f"minus top-2 gap "
+                  f"{[float(f'{v:.4g}') for v in gap.tolist()]}; prefill "
+                  f"{stats['prefill_ms']} ms, decode "
+                  f"{stats['decode_ms_per_step']} ms a step")
+        if dt == "float32":
+            check(f"{label}: every first token equal", not parts.any(),
+                  detail)
+        else:
+            check(f"{label}: first tokens part only within rounding "
+                  f"(gap <= 2 max |diff|)", bool(
+                      (gap[parts] <= 2 * diff[parts]).all()), detail)
+    return out
+
+
 def phase_wide_families() -> dict:
     """``--sharded``'s runs of the ssm, hybrid, vlm and audio families on
     ``WIDE_CARDS`` cards, each held against its baseline."""
@@ -2104,11 +2305,93 @@ def phase_wide_families() -> dict:
                       [(1, "dp", 1), (WIDE_CARDS, "dp", 1)],
                       rep["dp_train"][arch])
         # last: each of its ranks draws all ~34.4 G parameters (~280 s)
-        wide_pair(tmp, sharded_serve, WIDE_VLM, pair, rep["vlm_serve"])
+        rep["vlm_serve"] = vlm_layouts(tmp)
     rep["phase_s"] = time.perf_counter() - t0
     print(f"  the wide families took {rep['phase_s']:.1f} s")
     print(json.dumps({"sharded_wide_families": rep}))
     return rep
+
+
+# ``--sharded``'s dry-run over 4 cards (phase 8(c) over a mesh): rank 0's
+# fake trace of phase 9's qwen train step (bf16 with f32 master weights,
+# remat, 8 x 1024) against the same counters over the real step on rank 0
+# of each (mode, 'model') of 4 ranks
+COUNT_RUNS = (("tp_fsdp", 2), ("tp", 4))
+
+
+def count_child(mode: str, mp: int, path: str) -> None:
+    """``--count MODE MP PATH``, in the ranks of a ``torch.distributed.run``
+    launch: the train step ``launch.dryrun.make_inputs`` builds over the
+    (data, model) mesh of the ranks with 'model' = ``mp``, run once under
+    the dry-run's counters (``count``) on every rank; rank 0 writes its
+    counts and the allocator's peak over the run, from a reset before the
+    step's inputs exist."""
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+
+    def body(d, mesh, dmesh):
+        cfg = get_config(QWEN)
+        torch.cuda.synchronize(d)
+        base = torch.cuda.memory_allocated(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        got = count(*make_inputs(cfg, Cell("train", *TRAIN[:2]), d,
+                                 mesh=dmesh, mode=mode))
+        torch.cuda.synchronize(d)
+        peak = torch.cuda.max_memory_allocated(d) - base
+        if is_main():
+            with open(path, "w") as f:
+                json.dump({"mesh": mesh.shape, "mode": mode, "real": got,
+                           "allocated_peak_bytes": peak}, f)
+
+    run_launched(mp, dev, body)
+
+
+def phase_mesh_dryrun_vs_card() -> list:
+    """``--sharded``'s fake trace of rank 0 against the real step on 4
+    cards: FLOPs and each kind's collective bytes equal, the traced peak
+    within ``PEAK_TOL`` of ``torch.cuda.max_memory_allocated``."""
+    cards = torch.cuda.device_count()
+    print(f"== --sharded: the dry-run of {QWEN}'s train step "
+          f"{TRAIN[0]}x{TRAIN[1]} against the real step over {WIDE_CARDS} "
+          f"cards")
+    if cards < WIDE_CARDS:
+        check(f"{WIDE_CARDS} cards for the dry-run against the real step",
+              False, f"the machine shows {cards}")
+        return []
+    cfg, cell = get_config(QWEN), Cell("train", *TRAIN[:2])
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="tcm-count-") as tmp:
+        for mode, mp in COUNT_RUNS:
+            shape = (WIDE_CARDS // mp, mp)
+            fake = trace_step(cfg, cell, "cuda",
+                              mesh=Mesh(("data", "model"), shape), mode=mode)
+            path = os.path.join(tmp, f"count_{mode}.json")
+            r = run_child(f"{QWEN} train step under the dry-run's counters, "
+                          f"mesh {shape}, --mode {mode}",
+                          [os.path.join(ROOT, "chip_smoke.py"), "--count",
+                           mode, str(mp)], WIDE_CARDS, [path], tmp, path)
+            if r is None:
+                continue
+            real, peak = r["real"], r["allocated_peak_bytes"]
+            want = fake["memory_per_device"]["peak_live_bytes"]
+            flops = (fake["hlo"]["per_device_flops"],
+                     real["hlo"]["per_device_flops"])
+            coll = (fake["hlo"]["collective_bytes"],
+                    real["hlo"]["collective_bytes"])
+            check(f"dry-run of rank 0 vs the real step, mesh {shape}, "
+                  f"--mode {mode}", flops[0] == flops[1]
+                  and coll[0] == coll[1]
+                  and abs(want - peak) <= PEAK_TOL * peak,
+                  f"FLOPs {flops[0]:.6g} traced vs {flops[1]:.6g} counted; "
+                  f"collective bytes {coll[0]} traced vs {coll[1]}; peak "
+                  f"{want} B traced vs {peak} B allocated "
+                  f"({want / peak - 1:+.4f}; tracked on the card "
+                  f"{real['memory_per_device']['peak_live_bytes']} B); "
+                  f"trace {fake['hlo']['trace_s']} s")
+            rows.append({"mesh": shape, "mode": mode, "fake": fake,
+                         "real": real, "allocated_peak_bytes": peak,
+                         "child_s": r["child_s"]})
+    print(json.dumps({"dryrun_vs_cards": rows}))
+    return rows
 
 
 def one_device_qwen() -> tuple:
@@ -2146,6 +2429,7 @@ def sharded_alone() -> int:
     phase_sharded(served, trained)
     phase_wide()
     phase_wide_families()
+    phase_mesh_dryrun_vs_card()
     return 1 if FAILURES else 0
 
 
@@ -2187,6 +2471,9 @@ def main() -> int:
     if FAILURES:
         return 1
     timed("8", phase_tools)
+    if FAILURES:
+        return 1
+    timed("8e", phase_mesh_dryrun)
     if FAILURES:
         return 1
     timed("9", lambda: (phase_sharded(served, trained["run"]), phase_moe(),
@@ -2233,6 +2520,12 @@ if __name__ == "__main__":
         sys.exit(sharded_alone())
     if sys.argv[1:2] == ["--families"]:
         families_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--count"]:
+        count_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--vlm"]:
+        vlm_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     if sys.argv[1:2] == ["--moe"]:
         moe_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),

@@ -234,14 +234,20 @@ SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 SHARDED_MODES = tuple(RULES)
 
 
-def check_sharded(cfg, mode: str, mesh=None) -> None:
+def check_sharded(cfg, mode: str, mesh=None, strict: bool = True) -> None:
     """Raises ValueError unless the model runs ``cfg`` over a mesh in
-    ``mode``, and, given ``mesh``, unless the mesh extent that ``mode``
-    shards the layer stacks over divides each stack of more than one
-    layer (``lm._stack_groups``).  A one-layer stack keeps its layer
-    whole and its 'embed' takes the axis instead, as the reference lays
-    it out by ``shardings_for(..., like=)``; a longer stack the extent
-    does not divide the reference's jit'd step refuses."""
+    ``mode``, and, given ``mesh`` and ``strict``, unless the mesh extent
+    that ``mode`` shards the layer stacks over divides each stack of more
+    than one layer (``lm._stack_groups``).
+
+    ``strict`` is the reference's launchers, whose jit'd steps place the
+    parameters by ``shardings_for`` without ``like=`` and refuse such a
+    stack.  Not ``strict`` is the reference's dry-run, which gates every
+    mapping by the leaf's shape (``like=params_abs``) and compiles such a
+    stack with 'layers' dropped (or cut to a prefix of its axes that
+    divides, e.g. 24 layers over 'pod' of a 2x16x16 mesh) and 'embed'
+    over the freed axis; the port lays it out the same way, as it always
+    lays out a one-layer stack."""
     from ..models.lm import _stack_groups
 
     if cfg.family not in SHARDED_FAMILIES or mode not in SHARDED_MODES:
@@ -249,7 +255,7 @@ def check_sharded(cfg, mode: str, mesh=None) -> None:
             f"the sharded path runs the {'/'.join(SHARDED_FAMILIES)} "
             f"families in modes {'/'.join(SHARDED_MODES)}; not "
             f"{cfg.name} ({cfg.family}) in mode {mode!r}")
-    if mesh is None:
+    if mesh is None or not strict:
         return
     mesh = as_mesh(mesh)
     axes = spec_to_pspec(("layers",), RULES[mode], mesh)[0]
@@ -399,13 +405,16 @@ def local_index(pl, dmesh, shape) -> Tuple[slice, ...]:
 
 
 def _from_local(local, dmesh, pl, shape):
-    """The DTensor of whole ``shape`` whose shard on this rank is
-    ``local``, laid out by ``pl``."""
+    """The DTensor of whole ``shape`` (contiguous) whose shard on this
+    rank is ``local``, laid out by ``pl``."""
     from torch.distributed.tensor import DTensor
 
-    whole = torch.empty(shape, device="meta")
+    stride, n = [], 1
+    for d in reversed(tuple(shape)):
+        stride.insert(0, n)
+        n *= d
     return DTensor.from_local(local, dmesh, pl, run_check=False,
-                              shape=whole.shape, stride=whole.stride())
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 def local_part(spec, shape, dmesh, mode: str):
@@ -430,77 +439,104 @@ def sharded_zeros(spec, shape, dtype, dmesh, mode: str, device):
 
 def layer(stack, i: int):
     """Layer ``i`` of the stacked parameter ``stack``: ``stack[i]``, or,
-    for a DTensor whose layer dim is split over ranks (``tp_fsdp``), the
-    layer broadcast from the rank that holds it to the others of its
-    group, keeping its other placements.  In the backward the layer's
-    gradient is reduced onto that rank: the reference's reduce-scatter of
-    a layer-sharded stack."""
+    for a DTensor whose layer dim is split over ranks (``tp_fsdp``: over
+    'data', or over ('pod', 'data') major to minor), the layer broadcast
+    from the rank that holds it to the others of its group, keeping its
+    other placements.  In the backward the layer's gradient is reduced
+    onto that rank: the reference's reduce-scatter of a layer-sharded
+    stack."""
     if is_dtensor(stack) and any(p.is_shard(0) for p in stack.placements):
         return _LayerGather.apply(stack, i)
     return stack[i]
 
 
+def _group(mesh, dims: Tuple[int, ...]):
+    """The process group over the mesh dims ``dims`` (one dim, or the two
+    of ``launch.mesh.FLATTENED``, whose flattened dim ``device_mesh``
+    built with the mesh)."""
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    return mesh.get_group("_".join(mesh.mesh_dim_names[m] for m in dims))
+
+
+def _rank_of(mesh, dims: Tuple[int, ...], at) -> int:
+    """The global rank of the member of this rank's group over ``dims``
+    whose coordinates on them are ``at``: the group lists its ranks in
+    row-major order of those coordinates.  (The ``DeviceMesh``'s rank
+    tensor is not read: inside ``FakeTensorMode`` it would not be a fake
+    tensor.)"""
+    flat = 0
+    for m, c in zip(dims, at):
+        flat = flat * mesh.size(m) + c
+    return dist.get_global_rank(_group(mesh, dims), flat)
+
+
 def _gather_plan(stack, i: int):
-    """(mesh dim splitting the stack's layers, the owner's global rank,
-    whether this rank owns layer ``i``, its index in the owner's shard,
-    the layer's placements)."""
+    """(the mesh dims splitting the stack's layers, major to minor; the
+    owner's coordinates on them; the owner's global rank; whether this
+    rank owns layer ``i``; its index in the owner's shard; the layer's
+    placements).  The layers are split evenly over the dims' ranks in
+    row-major order, as ``placements`` lays them out."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh, pl = stack.device_mesh, tuple(stack.placements)
-    dims = [m for m, p in enumerate(pl) if p.is_shard(0)]
-    if len(dims) != 1:
-        raise NotImplementedError(
-            f"a layer stack split over {len(dims)} mesh dims ({pl}); the "
-            f"layer gather takes one")
-    dim = dims[0]
-    per = stack.shape[0] // mesh.size(dim)
-    owner, j = divmod(i, per)
-    coord = list(mesh.get_coordinate())
-    mine = coord[dim] == owner
-    coord[dim] = owner
-    src = int(mesh.mesh[tuple(coord)])
-    layer_pl = tuple(Replicate() if m == dim else
+    dims = tuple(m for m, p in enumerate(pl) if p.is_shard(0))
+    sizes = [mesh.size(m) for m in dims]
+    n = 1
+    for k in sizes:
+        n *= k
+    flat, j = divmod(i, stack.shape[0] // n)
+    owner = []
+    for k in reversed(sizes):
+        flat, c = divmod(flat, k)
+        owner.insert(0, c)
+    coord = mesh.get_coordinate()
+    mine = [coord[m] for m in dims] == owner
+    layer_pl = tuple(Replicate() if m in dims else
                      (Shard(p.dim - 1) if p.is_shard() else p)
                      for m, p in enumerate(pl))
-    return dim, src, mine, j, layer_pl
+    return dims, owner, _rank_of(mesh, dims, owner), mine, j, layer_pl
 
 
 class _LayerGather(torch.autograd.Function):
-    """``layer``'s gather: a broadcast from the owner in the forward, a
-    reduce onto it in the backward."""
+    """``layer``'s gather: a broadcast from the owner over the group of
+    the dims that split the stack in the forward, a reduce onto it over
+    the dims where the gradient is a pending sum in the backward."""
 
     @staticmethod
     def forward(ctx, stack, i):
-        dim, src, mine, j, layer_pl = _gather_plan(stack, i)
+        dims, owner, src, mine, j, layer_pl = _gather_plan(stack, i)
         mesh, local = stack.device_mesh, stack.to_local()
         buf = (local[j].contiguous() if mine else
                torch.empty(local.shape[1:], dtype=local.dtype,
                            device=local.device))
-        dist.broadcast(buf, src=src, group=mesh.get_group(dim))
-        ctx.plan = (dim, src, mine, j, layer_pl)
+        dist.broadcast(buf, src=src, group=_group(mesh, dims))
+        ctx.plan = (dims, owner, mine, j, layer_pl)
         ctx.stack = (mesh, tuple(stack.placements), tuple(stack.shape),
                      local.shape)
         return _from_local(buf, mesh, layer_pl, stack.shape[1:])
 
     @staticmethod
     def backward(ctx, g):
-        from torch.distributed.tensor import Replicate
-
         if g is None:
             return None, None
-        dim, src, mine, j, layer_pl = ctx.plan
+        dims, owner, mine, j, layer_pl = ctx.plan
         mesh, pl, shape, local_shape = ctx.stack
-        # the layer's own layout, except that a sum still pending over the
-        # owner's group is reduced onto the owner alone
-        pending = g.placements[dim]
+        # the layer's own layout, except that a sum still pending over
+        # the dims that split the stack is reduced onto the owner alone
+        pending = [m for m in dims if g.placements[m].is_partial()]
         target = list(layer_pl)
-        target[dim] = pending if pending.is_partial() else Replicate()
+        for m in pending:
+            if g.placements[m].reduce_op != "sum":
+                raise NotImplementedError(f"a {g.placements[m]} gradient")
+            target[m] = g.placements[m]
         g = g.redistribute(mesh, target).to_local()
-        if pending.is_partial():
-            if pending.reduce_op != "sum":
-                raise NotImplementedError(f"a {pending} gradient")
+        if pending:
             g = g.contiguous().clone()
-            dist.reduce(g, dst=src, group=mesh.get_group(dim))
+            pending = tuple(pending)
+            at = [owner[dims.index(m)] for m in pending]
+            dist.reduce(g, dst=_rank_of(mesh, pending, at),
+                        group=_group(mesh, pending))
         out = torch.zeros(local_shape, dtype=g.dtype, device=g.device)
         if mine:
             out[j] = g
@@ -558,6 +594,40 @@ def batch_local(fn, x, params: Dict, state: Optional[Dict] = None):
         return outs[0], None
     return outs[0], {k: _moved(v, state[k].placements)
                      for k, v in zip(skeys, outs[1:])}
+
+
+def split_like(x, ref):
+    """The DTensor ``x`` split as the DTensor ``ref`` splits the leading
+    dims they share (``ref``'s other splits and pending sums whole on
+    ``x``); anything else as it is."""
+    from torch.distributed.tensor import Replicate
+
+    if not (is_dtensor(x) and is_dtensor(ref)):
+        return x
+    return _moved(x, tuple(p if p.is_shard() and p.dim < x.ndim
+                           else Replicate() for p in ref.placements))
+
+
+def gather_last(x, index):
+    """``x.gather(-1, index[..., None])[..., 0]``: of a DTensor ``x``, on
+    each rank on its rows (``local_map``), its last dim whole and
+    ``index`` split as its rows are.  (At the DTensor level the gather's
+    backward would make zeros of ``x``'s whole shape on every rank: the
+    logits of the whole batch.)"""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    if not is_dtensor(x):
+        return x.gather(-1, index[..., None])[..., 0]
+    x = _moved(x, tuple(Replicate() if p.is_partial() else p
+                        for p in _whole_along(x.placements, x.ndim - 1)))
+    index = split_like(index, x)
+    rows = tuple(p if p.is_shard() else Replicate() for p in x.placements)
+    fn = local_map(lambda a, i: (a.gather(-1, i[..., None])[..., 0],),
+                   out_placements=(rows,),
+                   in_placements=(x.placements, index.placements),
+                   device_mesh=x.device_mesh, redistribute_inputs=True)
+    return fn(x, index)[0]
 
 
 def seq_replicated_like(upd, buf):

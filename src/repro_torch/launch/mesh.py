@@ -8,7 +8,8 @@ placed as DTensors.
 
 ``make_production_mesh`` describes the reference's production meshes:
 single-pod 16x16 = 256 chips (data x model), multi-pod 2x16x16 = 512
-(pod x data x model).  They are for planning layouts only.
+(pod x data x model).  They plan layouts, and the dry-run traces one
+rank of them in a fake group (``fake_group``).
 ``make_host_mesh`` and ``make_elastic_mesh`` keep the reference's
 arithmetic over the ranks of the process group when one is up, else over
 the devices given, by default every card (``torch.cuda.device_count()``);
@@ -22,6 +23,7 @@ collective fails the run instead of hanging it.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from dataclasses import dataclass
@@ -61,17 +63,50 @@ def as_mesh(mesh) -> Mesh:
     return Mesh(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
 
 
+# the mesh axes whose product ``device_mesh`` flattens into one group of
+# its own: ``tp_fsdp`` splits the layer stacks over both ('pod', 'data')
+FLATTENED = ("pod", "data")
+
+
 def device_mesh(mesh: Mesh, device_type: str):
     """``mesh`` over the ranks of the process group, as a ``DeviceMesh``
-    of ``device_type`` (``"cuda"`` or ``"cpu"``).  Raises ValueError
-    unless the group has ``mesh.size`` ranks."""
+    of ``device_type`` (``"cuda"`` or ``"cpu"``).  Where the mesh has both
+    axes of ``FLATTENED``, their product is flattened into a mesh dim of
+    its own (``"pod_data"``), whose group ``distributed.sharding.layer``
+    gathers a layer over; it is built here, with the mesh, because every
+    rank must build it and ``DeviceMesh`` cannot under ``FakeTensorMode``.
+    Raises ValueError unless the group has ``mesh.size`` ranks."""
     from torch.distributed.device_mesh import init_device_mesh
 
     n = dist.get_world_size() if dist.is_initialized() else 1
     if n != mesh.size:
         raise ValueError(f"a mesh of {mesh.size} devices over {n} ranks")
-    return init_device_mesh(device_type, mesh.axis_sizes,
-                            mesh_dim_names=mesh.axis_names)
+    dm = init_device_mesh(device_type, mesh.axis_sizes,
+                          mesh_dim_names=mesh.axis_names)
+    if set(FLATTENED) <= set(mesh.axis_names):
+        dm[FLATTENED]._flatten()
+    return dm
+
+
+@contextlib.contextmanager
+def fake_group(mesh: Mesh):
+    """This process as rank 0 of a fake process group of ``mesh.size``
+    ranks (``torch.testing._internal.distributed.fake_pg``): collectives
+    run on this rank alone, moving nothing, so one process can trace one
+    rank's step over the reference's 256- and 512-device meshes (the
+    dry-run, on fake tensors).  The group is destroyed on exit.  Raises
+    RuntimeError while a process group is up."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up; a fake group of "
+                           f"{mesh.size} ranks would replace it")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def launched() -> bool:

@@ -15,7 +15,9 @@ Hardware constants (NVIDIA H100 SXM data sheet, dense, 700 W):
 Terms (per device):
   compute_s    = FLOPs_per_device / 989e12
   memory_s     = analytic HBM bytes_per_device / 3.35e12
-  collective_s = collective_bytes_per_device / 450e9   (0 on one device)
+  collective_s = collective_bytes_per_device / 450e9   (0 on one device;
+                 the port's pod and multipod cells count each collective's
+                 operand bytes on rank 0, ``launch.dryrun``)
 
 MODEL_FLOPS = 6*N*D (dense) or 6*N_active*D (MoE) for train cells; for
 prefill 2*N*D + attention; decode per-token.  The ratio MODEL_FLOPS /

@@ -524,7 +524,10 @@ def _moe(cfg, router, wg, wu, wd, x, e0: int = 0):
     # load-balancing aux loss (Switch-style)
     me = probs.mean(0)
     flat_expert = expert_idx.reshape(-1)  # (T*K,)
-    onehot = F.one_hot(flat_expert, E)  # (T*K, E)
+    # (T*K, E): ``F.one_hot``'s values, by ops that run alike on real and
+    # fake tensors (``one_hot`` checks its input's range on real ones)
+    onehot = (flat_expert[:, None]
+              == torch.arange(E, device=x.device)).long()
     # the counts of ``bincount``, in a shape that does not depend on the
     # data (the dry-run traces it)
     ce = onehot.sum(0).float() / (T * K)
@@ -539,11 +542,15 @@ def _moe(cfg, router, wg, wu, wd, x, e0: int = 0):
     tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
     w = (gate_vals.reshape(-1) * keep).to(dt)
     n_local = wg.shape[0]
-    if n_local < E:  # a rank's experts: only their (token, k) pairs
-        sel = ((flat_expert >= e0) & (flat_expert < e0 + n_local)) \
-            .nonzero()[:, 0]
-        flat_expert, slot = flat_expert[sel] - e0, slot[sel]
-        tok_idx, w = tok_idx[sel], w[sel]
+    if n_local < E:
+        # a rank's experts: the other experts' (token, k) pairs go to
+        # the scratch slot of expert 0 with weight 0, as dropped ones do
+        # (a shape that does not depend on the routing: the dry-run
+        # traces it)
+        mine = (flat_expert >= e0) & (flat_expert < e0 + n_local)
+        flat_expert = torch.where(mine, flat_expert - e0, 0)
+        slot = torch.where(mine, slot, capacity)
+        w = w * mine
 
     # dispatch: (E, capacity+1, D); scratch row absorbs dropped tokens
     buf = torch.zeros((n_local, capacity + 1, D), dtype=dt, device=x.device)
@@ -579,8 +586,11 @@ def _moe_sharded(cfg, p: Params, x):
     mesh = x.device_mesh
     wg, wu, wd = p["wg"], p["wu"], p["wd"]
     # the rules split the three alike: experts over 'model', their ff
-    # columns over 'data' under tp_ep
-    w_pl = [tuple(w.placements) for w in (wg, wu, wd)]
+    # columns over 'data' under tp_ep; a rank computes with their 'embed'
+    # dim whole (tp_fsdp splits it over 'data' where the layers stay
+    # whole), so it is gathered here and its gradient comes back whole
+    w_pl = [sharding._whole_along(w.placements, d)
+            for w, d in ((wg, 1), (wu, 1), (wd, 2))]
     split = [pl.is_shard() for pl in w_pl[0]]
     whole = (Replicate(),) * mesh.ndim
     summed = tuple(Partial() if s else Replicate() for s in split)

@@ -37,8 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import (constrain, is_dtensor, layer,
-                                    map_specs)
+from ..distributed.sharding import (constrain, gather_last, is_dtensor,
+                                    layer, map_specs, split_like)
 from .config import ModelConfig
 from .layers import (_init, _whole_seq, attention_block, attention_params,
                      cross_attention_cached, cross_kv, embedding_params, mlp,
@@ -511,9 +511,13 @@ def loss_fn(cfg: ModelConfig, params: Params, batch) -> Tuple[torch.Tensor,
         # and the vocabulary whole, as the text-only logits hold it
         logits = constrain(logits, ("batch", None, None))
         logits = logits[:, -labels.shape[1]:]
+    # over a mesh, the labels split as the logits' rows are (the inputs
+    # come split over ('pod', 'data') only; ``dp`` splits the rows over
+    # 'model' too): a gather of other rows would take them all whole
+    labels = split_like(labels, logits)
     lse = torch.logsumexp(logits, dim=-1)
     # a negative label is masked below; clamp it only to gather something
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    gold = gather_last(logits, labels.clamp_min(0))
     mask = (labels >= 0).float()
     nll = (lse - gold) * mask
     loss = nll.sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..distributed.sharding import (NamedSharding, P, activation_sharding_ctx,
-                                    check_sharded, full, place)
+                                    check_sharded, full, is_dtensor, place)
 from ..launch.mesh import as_mesh
 from ..models import lm
 from ..models.config import ModelConfig
@@ -106,17 +106,20 @@ def place_cache(cfg: ModelConfig, cache, mesh):
 
 def _placed(mesh, batch):
     sh = batch_shardings(mesh, batch)
-    return {k: place(v, sh[k]) for k, v in batch.items()}
+    return {k: v if is_dtensor(v) else place(v, sh[k])
+            for k, v in batch.items()}
 
 
-def make_serve_steps(cfg: ModelConfig, mesh=None, mode: str = "tp"):
+def make_serve_steps(cfg: ModelConfig, mesh=None, mode: str = "tp",
+                     strict: bool = True):
     """(prefill_step(params, batch, cache), decode_step(params, tok,
     cache)); each returns (last logits (B, vocab) f32, cache).  With a
     ``DeviceMesh`` the batch and the tokens may be plain tensors (the same
-    on every rank): they are placed by ``batch_shardings``; the logits
-    come back as a plain replicated tensor."""
+    on every rank): they are placed by ``batch_shardings``; or placed
+    already (DTensors).  The logits come back as a plain replicated
+    tensor.  ``strict`` as for ``sharding.check_sharded``."""
     if mesh is not None:
-        check_sharded(cfg, mode, mesh)
+        check_sharded(cfg, mode, mesh, strict)
 
     def placed(batch):
         return batch if mesh is None else _placed(mesh, batch)

@@ -21,8 +21,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..distributed.sharding import (NamedSharding, activation_sharding_ctx,
-                                    batch_pspec, check_sharded, full,
+from ..distributed.sharding import (NamedSharding, _from_local,
+                                    activation_sharding_ctx, batch_pspec,
+                                    check_sharded, full, is_dtensor,
                                     local_part, map_specs, place,
                                     sharded_zeros)
 from ..models import lm
@@ -45,13 +46,34 @@ def _to_device(batch: Dict[str, np.ndarray],
 
 def _place_batch(batch: Dict[str, torch.Tensor], mesh):
     """Each array split over ('pod', 'data') on ``mesh`` (the reference's
-    ``batch_pspec``)."""
-    return {k: place(v, NamedSharding(mesh, batch_pspec(mesh, v.ndim - 1)))
-            for k, v in batch.items()}
+    ``batch_pspec``); an array already placed (a DTensor) as it is."""
+    return {k: v if is_dtensor(v) else place(v, NamedSharding(
+        mesh, batch_pspec(mesh, v.ndim - 1))) for k, v in batch.items()}
+
+
+def _microbatch(v, i: int, microbatches: int):
+    """Part ``i`` of ``microbatches`` of the batch array ``v`` along its
+    leading axis: rows ``i*n:(i+1)*n`` of a plain array; of a placed one
+    (a DTensor), on every rank part ``i`` of its own rows, so no row
+    moves between ranks (the parts differ from the plain array's, their
+    mean loss and summed gradient do not)."""
+    if not is_dtensor(v):
+        n = v.shape[0] // microbatches
+        return v[i * n:(i + 1) * n]
+    if microbatches == 1:
+        return v
+    local = v.to_local()
+    n, rest = divmod(local.shape[0], microbatches)
+    if rest:
+        raise ValueError(f"{local.shape[0]} rows on a rank do not split "
+                         f"into {microbatches} microbatches")
+    return _from_local(local[i * n:(i + 1) * n], v.device_mesh,
+                       v.placements, (v.shape[0] // microbatches,)
+                       + tuple(v.shape[1:]))
 
 
 def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1,
-                    mesh=None, mode: str = "tp"):
+                    mesh=None, mode: str = "tp", strict: bool = True):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``; the metrics are 0-d f32 tensors on the
     device, plain (the same on every rank) over a mesh.  The batch's
@@ -59,9 +81,12 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1,
     their losses' mean, as the reference's scan sums them and divides,
     and its gradient the sum of each part's gradient divided by their
     count.  ``mesh`` is a ``DeviceMesh`` over which the parameters and the
-    state are placed (``init_sharded``), or None for one device."""
+    state are placed (``init_sharded``), or None for one device; over a
+    mesh the batch may come placed (DTensors, the reference's
+    ``batch_shardings``) or whole (the same on every rank: placed here).
+    ``strict`` as for ``check_sharded``."""
     if mesh is not None:
-        check_sharded(cfg, mode, mesh)
+        check_sharded(cfg, mode, mesh, strict)
 
     def train_step(params, opt_state, batch):
         leaves = lm.tree_leaves(params)
@@ -72,10 +97,10 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1,
         if B % microbatches:
             raise ValueError(f"batch {B} does not split into "
                              f"{microbatches} microbatches")
-        n = B // microbatches
         total, grads = 0.0, None
         for i in range(microbatches):
-            part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            part = {k: _microbatch(v, i, microbatches)
+                    for k, v in batch.items()}
             if mesh is not None:
                 part = _place_batch(part, mesh)
             with activation_sharding_ctx(mesh, mode):
@@ -110,7 +135,8 @@ def init(cfg: ModelConfig, oc: Optional[OptConfig], device,
 
 
 def init_sharded(cfg: ModelConfig, oc: Optional[OptConfig], mesh,
-                 mode: str = "tp", seed: int = 0, device=None):
+                 mode: str = "tp", seed: int = 0, device=None,
+                 strict: bool = True):
     """``init``'s parameters and optimizer state (None without ``oc``),
     placed on the ``DeviceMesh`` ``mesh`` by the reference's layouts:
     ``shardings_for(param_specs, like=params)`` and ``opt_state_specs``.
@@ -120,9 +146,9 @@ def init_sharded(cfg: ModelConfig, oc: Optional[OptConfig], mesh,
     ``cuda:LOCAL_RANK``): the values equal ``distribute(init(...))`` bit
     for bit, and no rank holds more than one whole leaf or layer at a
     time, on the CPU.  The optimizer state is made in its sharded layout
-    as zeros.  Returns (params, specs, opt_state), the reference's
-    ``init_sharded``."""
-    check_sharded(cfg, mode, mesh)
+    as zeros.  ``strict`` as for ``check_sharded``.  Returns (params,
+    specs, opt_state), the reference's ``init_sharded``."""
+    check_sharded(cfg, mode, mesh, strict)
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if mesh.device_type == "cuda" else torch.device("cpu"))

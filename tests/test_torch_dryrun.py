@@ -168,12 +168,7 @@ def test_dryrun_cell_traces(tmp_path):
     assert row["collective_s"] == 0 and row["compute_s"] > 0
 
 
-def test_dryrun_cli_refuses_the_multi_device_meshes(capsys):
-    for mesh, n in (("pod", 256), ("multipod", 512)):
-        with pytest.raises(SystemExit):
-            dryrun.main(["--arch", "mamba2-130m", "--mesh", mesh,
-                         "--device", "cpu"])
-        assert f"needs {n} devices" in capsys.readouterr().err
+def test_dryrun_cli_needs_a_card_unless_asked_for_the_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             dryrun.main(["--arch", "mamba2-130m", "--device", "cuda"])
