@@ -73,6 +73,29 @@ Phases (each prints its own lines; any failure exits nonzero):
      searcher's modeled latency, tile and kernel ms, the bound and TCM's
      rank by kernel time (a baseline's tile faster than TCM's is a finding,
      not a failure);
+  7b. the mapper's inner search step on the card (``TCM_JIT``:
+     ``core.symbolic.CriteriaKernel`` through ``kernels/csrc/criteria.cu``),
+     timed as its own phase, over qwen1.5-0.5b's 12 main-path shapes on
+     the card's plan arch, GPT-3's Q projection and the fused QK -> AV pair
+     on the TPU-v4i preset: (b) each searched serially with the route off
+     (every kernel call recorded) and on (launch counts reset before, read
+     after: the criteria kernel's launches), then the fused pair alone
+     with 2 spawned workers off and on (``TCM_JIT=1`` in their
+     environment; both pools in one child process, ``mapper_pools``,
+     which imports beside the serial runs and (a) and searches after them):
+     mapping, energy, latency and EDP equal, every counter equal in the
+     serial runs, each worker's launches, no unit retried or run in this
+     process, the card's memory with the workers' CUDA contexts up, wall
+     times; (a) on every recorded call the kernel on the card equals numpy
+     bit for bit (a power past f64's 53 bits is held against numpy with
+     the kernel's factors and within an ulp a factor; counted, with the
+     exponents seen and the non-integer columns), and its plain version on
+     the card equals the kernel on every 4th call; (c) one evaluation of
+     the heaviest recorded call's kernel at 3 to 20000 rows: numpy on the
+     host, the kernel alone, with its copies, the plain version on the
+     card, beside the bound (bytes at 3.35 TB/s, f64 operations at the
+     H100's 34 TFLOP/s without tensor cores); one JSON line
+     {"mapper_on_card": {...}};
   8. the one-device tools (``repro_torch.distributed``, ``launch.dryrun``,
      ``launch.roofline``, ``examples``; torch ops, the matmul kernel in the
      autotune twin): (a) ``compress_decompress`` over seeded gradients
@@ -82,8 +105,10 @@ Phases (each prints its own lines; any failure exits nonzero):
      of one against the round trip; (b) the dry-run of qwen1.5-0.5b's
      reference cells (train_4k, prefill_32k, decode_32k) at full width on
      the card, and ``roofline.analyze_cell`` over each with the H100's
-     constants; (c) the dry-run of phase 6's train step (8 x 1024) and of
-     phase 5's prefill (8 x 1024) and one decode step after it, each held
+     constants (through its CLI, each cell in a child process of its own,
+     side by side, read after (d)); (c), after (b), the dry-run of
+     phase 6's train step (8 x 1024) and of phase 5's prefill (8 x 1024)
+     and one decode step after it, each held
      against the same step run on the card: traced peak within 10% of
      ``torch.cuda.max_memory_allocated``, FLOPs equal to
      ``FlopCounterMode`` over the real run, the step's time (the median of
@@ -97,7 +122,13 @@ Phases (each prints its own lines; any failure exits nonzero):
      gathered over 'data' and over ('pod', 'data')), each through
      ``roofline.analyze_cell``: no error, 256 or 512 devices, collective
      bytes above 0, the collective term beside compute and memory
-     (timed as its own phase, "8e"); JSON lines {"tools": {...}} and
+     (timed as its own phase, "8e", the wait that is left, and by its
+     children's wall from their start).  The six tracing children trace on
+     the host, one process a cell, single-threaded: (b)'s start before
+     phase 6 (prefill_32k alone takes minutes) and (e)'s before phase 7;
+     all of them have ended before phase 7b (the wait is timed as "wait"),
+     so 7b and (c), whose times are host-bound, run beside no tracing.
+     JSON lines {"tools": {...}} and
      {"mesh_dryrun": {...}};
   9. the sharded path (``repro_torch.launch.train``/``serve`` over a
      ``torch.distributed`` mesh, ``distributed.sharding``'s DTensor
@@ -133,8 +164,9 @@ Phases (each prints its own lines; any failure exits nonzero):
      tolerance, every token equal); one JSON line {"sharded_families":
      {...}} with step, prefill and decode ms beside the one-device run's,
      peak memory and the CPU draw's seconds;
-  10. one JSON line with each kernel's launches on the main path (phase 3),
-     error and times;
+  10. one JSON line with each kernel's launches on the main path (phase 3;
+     the criteria kernel's in phase 7b's serial searches), error and times
+     (the criteria kernel's summed over 7b (c)'s row counts, with numpy's);
   11. the last line: {"ok": true, "device": {...}}.
 
 Needs torch with CUDA, nvcc and one card; it fails without them.
@@ -177,6 +209,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -193,8 +226,14 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.autotile import (kernel_takes,  # noqa: E402
                                        plan_arch, plan_einsum,
                                        plan_from_mapping, tcm_matmul_plan)
-from repro_torch.core.search import clear_search_caches  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.core import symbolic, tcm_map  # noqa: E402
+from repro_torch.core.einsum import batched_matmul  # noqa: E402
+from repro_torch.core.fusion import FusedWorkload, GroupEdge  # noqa: E402
+from repro_torch.core.mapper import tcm_map_group  # noqa: E402
+from repro_torch.core.presets import gpt3_einsums, tpu_v4i_like  # noqa
+from repro_torch.core.search import (ProcessPoolEngine,  # noqa: E402
+                                     clear_search_caches)
+from repro_torch.kernels import build, criteria  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.matmul import (matmul_cuda,  # noqa: E402
@@ -212,7 +251,7 @@ from repro_torch.gap.__main__ import main as gap_main  # noqa: E402
 from repro_torch.gap.runner import BASELINES, REL_EPS, run_gap  # noqa
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.dryrun import (Cell, count, fill_cache,  # noqa
-                                       make_inputs, run_cell, trace_step)
+                                       make_inputs, trace_step)
 from repro_torch.launch.roofline import (analytic_hbm_bytes,  # noqa: E402
                                          analyze_cell)
 from repro_torch.measure import (_randn, main_path_rows,  # noqa: E402
@@ -1239,6 +1278,385 @@ def phase_evidence(cfg) -> None:
     print(json.dumps({"gap": rows}))
 
 
+# the mapper's inner search step on the card (phase 7b): the search workers
+# of (b)'s process pool; the row counts of (c)'s one evaluation (fig8's n
+# is 20000, benchmarks/fig8_model_speed.py:81); the H100 SXM datasheet's
+# FP64 rate without tensor cores (no matrix product here)
+MAPPER_WORKERS = 2
+MAPPER_POOLED = "qk+av fused tpu_v4i"  # the pools' workload (the most calls)
+PLAIN_EVERY = 4  # (a) holds the plain version on every 4th recorded call
+CRITERIA_ROWS = (3, 89, 256, 1024, 15298, 20000)
+PEAK_F64_FLOPS = 34e12
+
+
+def mapper_workloads() -> list:
+    """(label, search) of phase 7b: qwen1.5-0.5b's 12 unique main-path
+    shapes on the card's plan arch (as phase 7 builds them), GPT-3's Q
+    projection and ``tests/test_fusion.py``'s fused QK -> AV pair on the
+    TPU-v4i preset.  ``search(engine)`` returns (result, stats) pairs.
+    GPT-3's K and V are cut for time: ``gpt3_einsums`` gives them Q's shape,
+    so their searches meet the same kernels and columns as Q's."""
+    cfg = get_config("qwen1_5_0_5b")
+    shapes = list(dict.fromkeys(
+        shp for mode, batch, seq in RUNS
+        for shp in model_shapes(cfg, mode, batch, seq).values()))
+    arch, tpu, gpt3 = plan_arch(), tpu_v4i_like(), gpt3_einsums()
+    pair = FusedWorkload("qk+av", (batched_matmul("qk", 8, 4, 32, 64),
+                                   batched_matmul("av", 8, 4, 64, 32)),
+                         (GroupEdge(0, 1, "Z", "A"),))
+    return [
+        ("qwen1.5-0.5b x12 plan_arch",
+         lambda eng: [tcm_map(plan_einsum(*s), arch, engine=eng)
+                      for s in shapes]),
+        ("gpt3 Q tpu_v4i", lambda eng: [tcm_map(gpt3["Q"], tpu, engine=eng)]),
+        ("qk+av fused tpu_v4i",
+         lambda eng: [tcm_map_group(pair, tpu, engine=eng)]),
+    ]
+
+
+def searched(results) -> list:
+    """What the route may not change: the rendered mapping, energy,
+    latency, EDP and every ``MapperStats`` counter (not the timings)."""
+    return [(repr(r.mapping), r.energy, r.latency, r.edp,
+             {k: v for k, v in vars(st).items() if not k.startswith("t_")})
+            for r, st in results]
+
+
+def _exact_product(a, b):
+    """Where a * b is exact in f64 (Dekker's product: the rounding error of
+    a * b, itself exact, is zero)."""
+    def split(x):
+        t = 134217729.0 * x  # 2^27 + 1
+        hi = t - (t - x)
+        return hi, x - hi
+    p = a * b
+    (ah, al), (bh, bl) = split(a), split(b)
+    return ((ah * bh - p) + ah * bl + al * bh) + al * bl == 0
+
+
+def inexact_powers(kernel, cols) -> int:
+    """(row, factor) entries where numpy's power may not be the kernel's:
+    a power of 3 or more (numpy's libm ``pow``, the kernel's repeated
+    products) whose products round, and every power below -1 (libm's
+    ``pow`` against one over the product)."""
+    n = 0
+    for ci, e in kernel._factors:
+        if e <= -2:
+            n += cols.shape[0]
+        elif e >= 3:
+            x = cols[:, ci]
+            p, ok = x, np.ones(len(x), dtype=bool)
+            for _ in range(e - 1):
+                ok &= _exact_product(p, x)
+                p = p * x
+            n += int((~ok).sum())
+    return n
+
+
+def numpy_with_products(kernel, cols) -> np.ndarray:
+    """numpy's packed evaluation (``CriteriaKernel.__call__``) with each
+    factor taken as the kernel takes it (``criteria.power``): where a power
+    rounds, the kernel must still equal this bit for bit."""
+    nf = len(kernel._factors)
+    F = np.empty((nf + 1, cols.shape[0]))
+    for f, (ci, e) in enumerate(kernel._factors):
+        F[f] = criteria.power(torch.from_numpy(cols[:, ci]), e).numpy()
+    F[nf] = 1.0
+    T = kernel._coeff_flat[:, None] * F[kernel._fid0]
+    for cut, fids in kernel._slots:
+        T[cut:] *= F[fids]
+    outT = np.zeros((kernel.n_crits, cols.shape[0]))
+    for nt, js, idx in kernel._acc_groups:
+        if nt:
+            acc = T[idx[:, 0]]
+            for t in range(1, nt):
+                acc += T[idx[:, t]]
+            outT[js] = acc
+    return outT.T
+
+
+def bits(x) -> np.ndarray:
+    return np.ascontiguousarray(x, dtype=np.float64).view(np.uint64)
+
+
+def launch_report(wait_s: float) -> tuple:
+    """(this process's id, its criteria kernel launches) after ``wait_s``
+    seconds: asked of each worker of a pool (a spawned worker imports this
+    module by name), the wait keeping the first ones busy so that each
+    worker takes one."""
+    time.sleep(wait_s)
+    return os.getpid(), criteria.criteria_cuda.launches
+
+
+def mapper_pool(jit: bool, workloads) -> dict:
+    """(b) with ``MAPPER_WORKERS`` spawned workers, the route on or off by
+    ``TCM_JIT`` (a worker reads it when it imports the mapper): the
+    results, the wall time (the workers' start included), the engine's
+    fault counts, and with the route on each worker's launches and the
+    card's memory beside the workers' CUDA contexts; ``report_s`` and
+    ``close_s``, the seconds of that report and of closing the pool."""
+    def used() -> int:
+        free, total = torch.cuda.mem_get_info()
+        return total - free
+
+    base = used()
+    if jit:
+        os.environ["TCM_JIT"] = "1"
+    eng = ProcessPoolEngine(workers=MAPPER_WORKERS, start_method="spawn")
+    try:
+        t0 = time.perf_counter()
+        out = {"results": {label: searched(run(eng))
+                           for label, run in workloads}}
+        out["wall_s"] = time.perf_counter() - t0
+        out["fault_stats"] = dict(eng.fault_stats)
+        if jit:
+            ex = eng._get_executor()
+            reports = [f.result() for f in [
+                ex.submit(launch_report, 0.5)
+                for _ in range(MAPPER_WORKERS)]]
+            out["worker_launches"] = dict(reports)
+            out["card_used_bytes"] = {"before": base, "workers_up": used()}
+            out["compute_apps"] = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip().splitlines()
+        out["report_s"] = time.perf_counter() - t0 - out["wall_s"]
+    finally:
+        t1 = time.perf_counter()
+        eng.close()
+        os.environ.pop("TCM_JIT", None)
+    out["close_s"] = time.perf_counter() - t1
+    return out
+
+
+def mapper_pools(launched: float) -> dict:
+    """(b)'s pooled runs of ``MAPPER_POOLED``, route off then on, in a child
+    process of their own (``python3 -c 'import chip_smoke as c; ...
+    c.mapper_pools()'``): its main module has no file for spawned workers
+    to import again, and it holds none of the earlier phases' memory (with
+    the pools run from the whole script they took 18.9 and 20.9 s on an
+    H100's host, after phase 1 alone 4.7 and 15.4 s).  ``launched``, the
+    parent's ``time.time()`` when it started the child, gives ``start_s``,
+    the child's start and imports; the child then waits for the parent's
+    ``go`` line on its standard input (``go_s``; it exits on anything
+    else).  JSON-ready: tuples come back as lists."""
+    out = {"start_s": time.time() - launched}
+    if sys.stdin.readline() != "go\n":
+        sys.exit(1)
+    out["go_s"] = time.time() - launched - out["start_s"]
+    workloads = [w for w in mapper_workloads() if w[0] == MAPPER_POOLED]
+    out.update({str(jit): mapper_pool(jit, workloads)
+                for jit in (False, True)})
+    out["done_at"] = time.time()
+    return out
+
+
+def phase_mapper_on_card() -> dict:
+    """Phase 7b.  The pools' child (``mapper_pools``) starts first and
+    imports while (b)'s serial searches and (a) run here; it searches once
+    they are done, and (c) runs after it has ended."""
+    print("== phase 7b: the mapper's inner search step on the card "
+          "(TCM_JIT: CriteriaKernel through csrc/criteria.cu)")
+    launched = time.time()
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke as c; "
+         f"print(json.dumps(c.mapper_pools({launched!r})))"], cwd=ROOT,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        return mapper_on_card(child, launched)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+
+
+def mapper_on_card(child, launched: float) -> dict:
+    dev = torch.device("cuda")
+    workloads = mapper_workloads()
+    rep = {"workloads": [label for label, _ in workloads]}
+
+    # (b) serial: the route off (every kernel call recorded for (a)), on
+    pairs = []
+    numpy_call = symbolic.CriteriaKernel.__call__
+
+    def record(self, cols):
+        out = numpy_call(self, cols)
+        pairs.append((self, cols.copy(), out))
+        return out
+
+    off, on, wall = {}, {}, {}
+    symbolic.CriteriaKernel.__call__ = record
+    try:
+        for label, run in workloads:
+            t0 = time.perf_counter()
+            off[label] = searched(run(None))
+            wall[label] = {"off_s": time.perf_counter() - t0}
+    finally:
+        symbolic.CriteriaKernel.__call__ = numpy_call
+    criteria.criteria_cuda.launches = 0
+    try:
+        symbolic.set_jit(True)
+        for label, run in workloads:
+            t0 = time.perf_counter()
+            on[label] = searched(run(None))
+            wall[label]["on_s"] = time.perf_counter() - t0
+    finally:
+        symbolic.set_jit(False)
+    torch.cuda.synchronize()
+    launches = criteria.criteria_cuda.launches
+    for label, _ in workloads:
+        check(f"search {label}, route on == off (serial)",
+              on[label] == off[label],
+              f"{len(off[label])} searches, n_expanded "
+              f"{sum(r[4]['n_expanded'] for r in off[label])}; wall off "
+              f"{wall[label]['off_s']:.2f} s (with the recording's copies), "
+              f"on {wall[label]['on_s']:.2f} s")
+    check("criteria kernel launched by the serial searches", launches > 0,
+          f"{launches} launches for {len(pairs)} kernel calls")
+    rep["serial"] = {"wall_s": wall, "launches": launches,
+                     "calls": len(pairs)}
+
+    # (a) every recorded call: the kernel on the card against numpy, bit
+    # for bit (a power that rounds: against numpy with the kernel's
+    # factors, each factor within an ulp of numpy's), and on every
+    # PLAIN_EVERY-th call the plain version on the card against the kernel
+    t0 = time.perf_counter()
+    descs, exps = {}, Counter()
+    n_inexact = n_nonint = n_values = n_plain = 0
+    err, bad = 0.0, []
+    for i, (kernel, cols, want) in enumerate(pairs):
+        if id(kernel) not in descs:
+            descs[id(kernel)] = criteria.pack(kernel, "cuda")
+            exps.update(e for _, e in kernel._factors)
+        c = descs[id(kernel)]
+        x = torch.from_numpy(cols).to(dev)
+        got = criteria.criteria_cuda(c, x).cpu().numpy()
+        n_nonint += int((cols != np.floor(cols)).any(axis=0).sum())
+        n_values += cols.size
+        inexact = inexact_powers(kernel, cols)
+        n_inexact += inexact
+        ref = numpy_with_products(kernel, cols) if inexact else want
+        ok = np.array_equal(bits(got), bits(ref))
+        if i % PLAIN_EVERY == 0:
+            plain = criteria.criteria_plain(c, x).cpu().numpy()
+            n_plain += 1
+            if got.size:
+                err = max(err, float(np.abs(got - plain).max()))
+            ok &= np.array_equal(bits(got), bits(plain))
+        if inexact:
+            for ci, e in kernel._factors:
+                col = cols[:, ci]
+                ok &= bool((np.abs(col ** e - criteria.power(
+                    torch.from_numpy(col), e).numpy())
+                    <= np.spacing(np.abs(col ** e))).all())
+        if not ok:
+            bad.append((cols.shape, kernel.n_crits))
+    torch.cuda.synchronize()
+    check(f"criteria kernel == numpy on every recorded call ({len(pairs)} "
+          f"calls, {len(descs)} kernels), plain version == kernel on "
+          f"{n_plain} of them", not bad,
+          f"exponents {dict(sorted(exps.items()))}, powers past f64's 53 "
+          f"bits {n_inexact}, non-integer columns {n_nonint} of "
+          f"{n_values} values, max|kernel - plain| {err}, "
+          f"{time.perf_counter() - t0:.1f} s"
+          + (f"; differ at {bad[:5]}" if bad else ""))
+    rep["checked"] = {"calls": len(pairs), "kernels": len(descs),
+                      "plain_calls": n_plain,
+                      "values": n_values,
+                      "exponents": {str(e): k for e, k in exps.items()},
+                      "inexact_powers": n_inexact,
+                      "non_integer_columns": n_nonint,
+                      "max_abs_err": err, "differ": len(bad)}
+
+    # (b) with workers, on MAPPER_POOLED alone (the others are cut for
+    # time): the route off, then on.  The workers share their incumbents,
+    # so when one sees another's bound decides what it prunes: the counters
+    # of two pooled runs differ with the route off alone, and these runs
+    # are held by their optima
+    stdout, stderr = child.communicate("go\n", timeout=600)
+    child_s = time.time() - launched
+    if child.returncode:
+        check("the pooled searches' child process", False,
+              f"rc {child.returncode} in {child_s:.1f} s: {stderr[-2000:]}")
+        return rep
+    res = json.loads(stdout.splitlines()[-1])
+    pools = {jit: res[str(jit)] for jit in (False, True)}
+    split = {"start": res["start_s"], "go": res["go_s"],
+             **{f"{k}_{s}": pools[jit][f"{s}_s"]
+                for k, jit in (("off", False), ("on", True))
+                for s in ("wall", "report", "close")},
+             "exit": time.time() - res["done_at"]}
+    check("the pooled searches' child process", True,
+          f"rc 0 in {child_s:.1f} s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " s")
+    for label in pools[True]["results"]:
+        got = [r[:4] for r in pools[True]["results"][label]]
+        check(f"search {label}, route on == off ({MAPPER_WORKERS} workers)",
+              got == [r[:4] for r in pools[False]["results"][label]]
+              and [r[1:] for r in got] == [list(r[1:4]) for r in off[label]],
+              "mapping, energy, latency and EDP equal; energy, latency and "
+              "EDP equal the serial search's")
+    wl = pools[True]["worker_launches"]
+    faults = [p["fault_stats"] for p in pools.values()]
+    check("criteria kernel launched in the workers, no unit retried or run "
+          "in this process", sum(wl.values()) > 0
+          and not any(v for f in faults for v in f.values()),
+          f"launches by worker pid {wl}; fault stats off/on {faults}; "
+          f"card memory used "
+          f"{pools[True]['card_used_bytes']}, compute apps "
+          f"{pools[True]['compute_apps']}; wall off "
+          f"{pools[False]['wall_s']:.2f} s, on {pools[True]['wall_s']:.2f} s")
+    rep["workers"] = {"n": MAPPER_WORKERS, "workload": MAPPER_POOLED,
+                      "child_s": child_s, "child_split_s": split,
+                      "wall_s": {"off": pools[False]["wall_s"],
+                                 "on": pools[True]["wall_s"]},
+                      "worker_launches": wl,
+                      "card_used_bytes": pools[True]["card_used_bytes"],
+                      "compute_apps": pools[True]["compute_apps"]}
+
+    # (c) one evaluation of the heaviest recorded call's kernel (rows times
+    # f64 operations a row), its rows repeated to each count
+    kernel, cols, _ = max(pairs, key=lambda p: (
+        p[1].shape[0] * descs[id(p[0])].ops_per_row))
+    c = descs[id(kernel)]
+    cpu, rows = torch.device("cpu"), []
+    for n in CRITERIA_ROWS:
+        cn = np.ascontiguousarray(cols[np.arange(n) % len(cols)])
+        x = torch.from_numpy(cn).to(dev)
+        us = {"numpy": time_call(lambda: kernel(cn), cpu),
+              "kernel": time_call(lambda: criteria.criteria_cuda(c, x), dev),
+              "with_copies": time_call(lambda: criteria.evaluate(c, cn), cpu),
+              "plain": time_call(lambda: criteria.criteria_plain(c, x), dev)}
+        us = {k: v * 1e6 for k, v in us.items()}
+        nbytes = 8 * n * (cn.shape[1] + c.n_crits)
+        tb, tf = nbytes / PEAK_BYTES_S, c.ops_per_row * n / PEAK_F64_FLOPS
+        rows.append({"rows": n, **{f"{k}_us": v for k, v in us.items()},
+                     "bound_us": max(tb, tf) * 1e6,
+                     "bound_by": "bytes" if tb >= tf else "operations",
+                     "tb": tb, "tf": tf})
+        print(f"  {n} rows x {cn.shape[1]} columns -> {c.n_crits} criteria: "
+              + ", ".join(f"{k} {v:.2f} us" for k, v in us.items())
+              + f"; bound {max(tb, tf) * 1e6:.4f} us "
+              f"({rows[-1]['bound_by']})")
+    rep["cost"] = [{k: v for k, v in r.items() if k not in ("tb", "tf")}
+                   for r in rows]
+    tb, tf = sum(r["tb"] for r in rows), sum(r["tf"] for r in rows)
+    rep["kernel"] = {
+        "name": "criteria", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/criteria.cu",
+        "replaces": "src/repro/core/symbolic.py:482", "launches": launches,
+        "max_abs_err": err,
+        "ms": sum(r["kernel_us"] for r in rows) / 1e3,
+        "plain_ms": sum(r["plain_us"] for r in rows) / 1e3,
+        "bound_ms": sum(r["bound_us"] for r in rows) / 1e3,
+        "bound_by": "bytes" if tb >= tf else "operations",
+        "library_ms": None,
+        "numpy_ms": sum(r["numpy_us"] for r in rows) / 1e3}
+    print(json.dumps({"mapper_on_card": rep}))
+    return rep
+
+
 # the one-device tools (phase 8): compression over a tree shaped like
 # qwen1.5-0.5b's f32 parameters; the model's reference dry-run cells; the
 # dry-run held against the steps on the card (phase 6's train step, phase
@@ -1248,6 +1666,7 @@ TOOLS_CELLS = ("train_4k", "prefill_32k", "decode_32k")
 TOOLS_STEPS = [Cell("train", 8, 1024), Cell("prefill", 8, 1024, 1056),
                Cell("decode", 8, 1025, 1056)]
 TOOLS_REPEATS = 5  # timed runs of each held step, after a warm-up
+TOOLS_DRYRUN_TIMEOUT_S = 600  # (b)'s children, from the start of a wait
 PEAK_TOL = 0.10  # dry-run peak against torch.cuda.max_memory_allocated
 E2E_STEPS = 20  # train_e2e's 300 steps, cut for time
 # (e): the dry-run over the reference's production meshes, rank 0 of 256
@@ -1335,18 +1754,65 @@ def check_compression(cfg) -> dict:
             "psum_bitwise": same}
 
 
-def check_dryrun_cells(tmp: str) -> list:
-    """(b): the reference's dry-run cells of the model on the card, and
-    the roofline over them with the H100's constants."""
+def dryrun_child(tmp: str, arch: str, shape: str, mesh: str):
+    """The dry-run's CLI for one cell in a child process of its own, its
+    JSON and its log (``<arch>__<shape>__<mesh>.log``) in ``tmp``: one
+    process traces one cell (the fake replay is host-bound and
+    single-threaded; prefill_32k alone takes minutes)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with open(Path(tmp) / f"{arch}__{shape}__{mesh}.log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", tmp], cwd=tmp,
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+
+
+def settle(procs: list, timeout_s: float) -> None:
+    """Wait for ``procs`` to end; kill those still running ``timeout_s``
+    seconds from now."""
+    end = time.perf_counter() + timeout_s
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(end - time.perf_counter(), 0.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def child_result(tmp: str, arch: str, shape: str, mesh: str, proc) -> dict:
+    """A cell's JSON, or its child's exit code and the end of its log."""
+    path = Path(tmp) / f"{arch}__{shape}__{mesh}.json"
+    if path.exists():
+        return json.loads(path.read_text())
+    log = (Path(tmp) / f"{arch}__{shape}__{mesh}.log").read_text()
+    return {"error": f"exit {proc.returncode}: {log[-1500:]}"}
+
+
+def start_dryrun_cells(tmp: str) -> list:
+    """(b), started: the reference's dry-run cells of the model on the
+    card, side by side, each in its own ``dryrun_child``.  Not beside (c)
+    or phase 7b, whose times they would slow (the decode step, host-bound,
+    took 122.61 against 68.16 ms beside them on an H100's host)."""
+    return [(shape, time.perf_counter(),
+             dryrun_child(tmp, TOOLS_ARCH, shape, "one"))
+            for shape in TOOLS_CELLS]
+
+
+def check_dryrun_cells(tmp: str, procs: list) -> list:
+    """(b), read: each cell's JSON, checked, and the roofline over it with
+    the H100's constants."""
+    settle([proc for *_, proc in procs], TOOLS_DRYRUN_TIMEOUT_S)
     rows = []
-    for shape in TOOLS_CELLS:
-        res = run_cell(TOOLS_ARCH, shape, device="cuda")
+    for shape, t0, proc in procs:
         path = Path(tmp) / f"{TOOLS_ARCH}__{shape}__one.json"
-        path.write_text(json.dumps(res))
+        res = child_result(tmp, TOOLS_ARCH, shape, "one", proc)
+        if "error" in res:
+            check(f"dry-run {TOOLS_ARCH} {shape}", False, res["error"])
+            rows.append({"shape": shape, "dryrun": res})
+            continue
         roof = analyze_cell(path)
         mem = res["memory_per_device"]
-        check(f"dry-run {TOOLS_ARCH} {shape}", "error" not in res
-              and res["n_devices"] == 1
+        check(f"dry-run {TOOLS_ARCH} {shape}", res["n_devices"] == 1
               and res["hlo"]["per_device_flops"] > 0
               and res["hlo"]["total_collective_bytes"] == 0,
               f"traced layers {res['traced_layers']} in "
@@ -1356,7 +1822,8 @@ def check_dryrun_cells(tmp: str) -> list:
               f"compute {roof['compute_s']:.4g} s, memory "
               f"{roof['memory_s']:.4g} s ({roof['dominant']}), useful "
               f"FLOP ratio {roof['useful_ratio']:.3f}")
-        rows.append({"shape": shape, "dryrun": res, "roofline": roof})
+        rows.append({"shape": shape, "dryrun": res, "roofline": roof,
+                     "child_s": time.perf_counter() - t0})
     return rows
 
 
@@ -1461,29 +1928,26 @@ def check_examples(tmp: str) -> dict:
     return out
 
 
-def check_mesh_dryrun(tmp: str) -> dict:
-    """(e): ``MESH_CELLS`` through the dry-run's CLI, each as rank 0 of
-    the reference's 256- or 512-device mesh over a fake group, fake
-    tensors on the card, in child processes of their own run side by side
-    (one process traces one cell: DTensor's fake replay is host-bound and
-    single-threaded); each through ``roofline.analyze_cell``."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    procs = [(arch, shape, mesh, subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", mesh, "--out", tmp], cwd=tmp, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+def start_mesh_dryrun(tmp: str) -> tuple:
+    """(e), started: ``MESH_CELLS``, each as rank 0 of the reference's 256-
+    or 512-device mesh over a fake group, fake tensors on the card, side by
+    side, each in its own ``dryrun_child``.  (start time, [(arch, shape,
+    mesh, process)])."""
+    return time.perf_counter(), [
+        (arch, shape, mesh, dryrun_child(tmp, arch, shape, mesh))
         for arch, shape, mesh in MESH_CELLS]
+
+
+def check_mesh_dryrun(tmp: str, started: tuple) -> dict:
+    """(e), read: each cell through ``roofline.analyze_cell``; ``wall_s``
+    from the children's start to their reading (each cell's own trace
+    seconds are in its ``hlo``)."""
+    t0, procs = started
+    settle([proc for *_, proc in procs], MESH_DRYRUN_TIMEOUT_S)
     rows = []
     for arch, shape, mesh, proc in procs:
-        try:
-            log, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            log = proc.communicate()[0] + "(killed)"
         path = Path(tmp) / f"{arch}__{shape}__{mesh}.json"
-        res = json.loads(path.read_text()) if path.exists() else {
-            "error": f"exit {proc.returncode}: {log[-1500:]}"}
+        res = child_result(tmp, arch, shape, mesh, proc)
         n = {"pod": 256, "multipod": 512}[mesh]
         ok = ("error" not in res and res["n_devices"] == n
               and res["hlo"]["total_collective_bytes"] > 0)
@@ -1510,18 +1974,24 @@ def check_mesh_dryrun(tmp: str) -> dict:
     return {"cells": rows, "wall_s": time.perf_counter() - t0}
 
 
-def phase_mesh_dryrun() -> None:
-    """Phase 8(e), timed on its own: ``check_mesh_dryrun``."""
+def phase_mesh_dryrun(started: tuple, tmp: str) -> None:
+    """Phase 8(e), timed on its own: ``check_mesh_dryrun`` over the
+    children ``started`` in ``tmp`` (by ``main`` before phase 7, so its
+    phase time is the wait that is left; alone,
+    ``phase_mesh_dryrun(start_mesh_dryrun(d), d)``)."""
     print("== phase 8(e): the dry-run over the reference's production "
           "meshes (rank 0 of 256 and 512)")
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="tcm-mesh-dryrun-") as tmp:
-        rep = check_mesh_dryrun(tmp)
-    print(f"  phase 8(e) took {rep['wall_s']:.1f} s")
+    rep = check_mesh_dryrun(tmp, started)
+    print(f"  phase 8(e): its children read {rep['wall_s']:.1f} s after "
+          f"they started")
     print(json.dumps({"mesh_dryrun": rep}))
 
 
-def phase_tools() -> None:
+def phase_tools(started: list, cells: str) -> None:
+    """Phase 8.  (b)'s children, ``started`` in ``cells`` (by ``main``
+    before phase 6; alone, ``phase_tools(start_dryrun_cells(d), d)``), are
+    read after (d), and (c) runs after them, beside no tracing."""
     print("== phase 8: the one-device tools (compression, dry-run and "
           "roofline, example twins)")
     t0 = time.perf_counter()
@@ -1529,9 +1999,9 @@ def phase_tools() -> None:
     rep = {"compression": check_compression(cfg)}
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="tcm-tools-") as tmp:
-        rep["dryrun"] = check_dryrun_cells(tmp)
-        rep["dryrun_vs_card"] = check_dryrun_vs_card(cfg)
         rep["examples"] = check_examples(tmp)
+    rep["dryrun"] = check_dryrun_cells(cells, started)
+    rep["dryrun_vs_card"] = check_dryrun_vs_card(cfg)
     rep["phase_s"] = time.perf_counter() - t0
     print(f"  phase 8 took {rep['phase_s']:.1f} s")
     print(json.dumps({"tools": rep}))
@@ -2464,18 +2934,37 @@ def main() -> int:
     served = timed("5", phase_served_model)
     if FAILURES:
         return 1
-    trained = timed("6", phase_training)
-    if FAILURES:
-        return 1
-    timed("7", phase_evidence, get_config("qwen1_5_0_5b"))
-    if FAILURES:
-        return 1
-    timed("8", phase_tools)
-    if FAILURES:
-        return 1
-    timed("8e", phase_mesh_dryrun)
-    if FAILURES:
-        return 1
+    # phase 8's six dry-run children trace on the host, one process a cell
+    # (single-threaded): (b)'s beside phase 6 (prefill_32k alone takes
+    # minutes), (e)'s beside phase 7; phase 7b waits for all of them
+    with tempfile.TemporaryDirectory(prefix="tcm-dryrun-") as tmp:
+        cells, mesh = os.path.join(tmp, "cells"), os.path.join(tmp, "mesh")
+        os.mkdir(cells)
+        os.mkdir(mesh)
+        procs = []
+        try:
+            tools = start_dryrun_cells(cells)
+            procs += [p for *_, p in tools]
+            trained = timed("6", phase_training)
+            if FAILURES:
+                return 1
+            meshes = start_mesh_dryrun(mesh)
+            procs += [p for *_, p in meshes[1]]
+            timed("7", phase_evidence, get_config("qwen1_5_0_5b"))
+            if FAILURES:
+                return 1
+            timed("wait", settle, procs, TOOLS_DRYRUN_TIMEOUT_S)
+            mapper = timed("7b", phase_mapper_on_card)
+            if FAILURES:
+                return 1
+            timed("8", phase_tools, tools, cells)
+            if FAILURES:
+                return 1
+            timed("8e", phase_mesh_dryrun, meshes, mesh)
+            if FAILURES:
+                return 1
+        finally:
+            settle(procs, 0)
     timed("9", lambda: (phase_sharded(served, trained["run"]), phase_moe(),
                         phase_families()))
     if FAILURES:
@@ -2498,6 +2987,7 @@ def main() -> int:
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["tb"] >= s["tf"] else "operations",
             "library_ms": s["library_ms"]})
+    kernels.append(mapper["kernel"])
     print(json.dumps({"phase_s": phase_s}))
     print(f"  phases 1-10 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import bisect
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, Iterable, Mapping, Sequence, Tuple, Union
 
@@ -311,6 +312,26 @@ def eval_criteria(crits: Sequence[Criterion], index: Mapping[str, int],
     return out
 
 
+# Optional on-card evaluation of the packed kernel (the innermost search
+# step).  Off by default: the numpy path is the bit-identity reference.
+# Enable with TCM_JIT=1 (or set_jit(True)) to evaluate every kernel call
+# with the hand-written CUDA kernel of ``repro_torch.kernels.criteria``,
+# which repeats numpy's order of operations; set_jit(True, device="cpu")
+# runs its plain torch version.  There is no fallback to numpy: without a
+# card, or when the build or a launch fails, the call raises.  Search
+# workers read TCM_JIT when they import this module; set_jit reaches this
+# process only.
+_JIT_ENABLED = os.environ.get("TCM_JIT", "0") not in ("", "0")
+_JIT_DEVICE = "cuda"
+
+
+def set_jit(enabled: bool, device: str = "cuda") -> None:
+    """Toggle the on-card kernel-evaluation path at runtime."""
+    global _JIT_ENABLED, _JIT_DEVICE
+    _JIT_ENABLED = bool(enabled)
+    _JIT_DEVICE = device
+
+
 class CriteriaKernel:
     """Compile a criteria list into packed numpy form, evaluated per batch.
 
@@ -337,10 +358,12 @@ class CriteriaKernel:
     """
 
     __slots__ = ("n_crits", "_factors", "_coeff_flat",
-                 "_fid0", "_slots", "_acc_groups", "_factor_groups")
+                 "_fid0", "_slots", "_acc_groups", "_factor_groups",
+                 "_jit_call")
 
     def __init__(self, crits: Sequence[Criterion], index: Mapping[str, int]):
         self.n_crits = len(crits)
+        self._jit_call = None
         factor_id: Dict[Tuple[int, int], int] = {}
         factors: list = []  # (column, exponent)
         coeff_flat: list = []
@@ -426,6 +449,10 @@ class CriteriaKernel:
         n = cols.shape[0]
         if self.n_crits == 0:
             return np.empty((n, 0))
+        if _JIT_ENABLED:
+            res = self._call_jit(cols)
+            if res is not None:
+                return res
         F = self._factor_table(cols)
         # flat (n_terms_total, n) product matrix, rows sorted by factor
         # count: slot q multiplies the tail of rows that still have a q-th
@@ -448,6 +475,21 @@ class CriteriaKernel:
                 acc += T[idx[:, t]]
             outT[js] = acc
         return outT.T
+
+    def _call_jit(self, cols: np.ndarray):
+        """The route of TCM_JIT=1: the criteria kernel on ``_JIT_DEVICE``.
+
+        The description is packed and uploaded once per kernel (again only
+        if ``set_jit`` changed the device); each call copies the columns
+        to the device and the criteria back.  Bit-identical to the numpy
+        path wherever each factor's exact power is representable in f64
+        (see ``repro_torch.kernels.criteria``).  Never None: a missing
+        card, build or launch raises.
+        """
+        from ..kernels import criteria
+        if self._jit_call is None or self._jit_call.asked != _JIT_DEVICE:
+            self._jit_call = criteria.pack(self, _JIT_DEVICE)
+        return criteria.evaluate(self._jit_call, cols)
 
 
 # ---------------------------------------------------------------------------

@@ -102,6 +102,9 @@ def lib() -> ctypes.CDLL:
                 p, p, p, p, i, i, i, i, i, i, i64p, i64p, i64p, i, i, i, f,
                 i, p]
             so.tcm_flash_attention_launch.restype = i
+            so.tcm_criteria_launch.argtypes = (
+                [p, ctypes.c_longlong, i] + [p] * 7 + [i, p, p])
+            so.tcm_criteria_launch.restype = i
             so.tcm_error_string.argtypes = [i]
             so.tcm_error_string.restype = ctypes.c_char_p
             _lib = so

@@ -2,12 +2,16 @@
 the training path on the card against the CPU.
 
 Duplicates of ``chip_smoke.py`` phase 2 at the reference tests' shapes and
-tolerances, of phase 6 (a)-(b) at smoke size, and of phase 8 (a)'s
-compression check.  Like the port, this
-file imports no JAX.  On the GPU machine:
+tolerances, of phase 6 (a)-(b) at smoke size, of phase 8 (a)'s
+compression check, and of phase 7b's criteria kernel against its plain
+version and numpy, bit for bit, with the search's route on.  Like the
+port, this file imports no JAX.  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,12 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
 from repro_torch.kernels.matmul import (matmul_cuda, matmul_plain,
                                         wgmma_instance, wgmma_instances)
 from repro_torch.configs import get_config
+from repro_torch.core import matmul, symbolic, tcm_map
+from repro_torch.core.einsum import batched_matmul
+from repro_torch.core.fusion import FusedWorkload, GroupEdge
+from repro_torch.core.mapper import tcm_map_group
+from repro_torch.core.presets import tpu_v4i_like
+from repro_torch.kernels import criteria
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.distributed import compression
 from repro_torch.kernels.ref import attention_ref, matmul_ref
@@ -215,3 +225,103 @@ def test_compression_on_card_equals_cpu_bitwise(cuda_device):
         card, compression.init_error_feedback(card))
     for a, b in zip(lm.tree_leaves(out), lm.tree_leaves(out_c)):
         assert torch.equal(b.cpu(), a)
+
+
+@functools.lru_cache(maxsize=1)
+def _criteria_pairs():
+    """Every (kernel, columns) pair the fused QK -> AV search meets
+    (``tests/test_fusion.py``'s pair on the TPU-v4i preset), with numpy's
+    criteria."""
+    seen = []
+    orig = symbolic.CriteriaKernel.__call__
+
+    def rec(self, cols):
+        out = orig(self, cols)
+        seen.append((self, cols.copy(), np.ascontiguousarray(out)))
+        return out
+
+    symbolic.CriteriaKernel.__call__ = rec
+    try:
+        qk = batched_matmul("qk", 8, 4, 32, 64)
+        av = batched_matmul("av", 8, 4, 64, 32)
+        tcm_map_group(FusedWorkload("qk+av", (qk, av),
+                                    (GroupEdge(0, 1, "Z", "A"),)),
+                      tpu_v4i_like())
+    finally:
+        symbolic.CriteriaKernel.__call__ = orig
+    return seen
+
+
+def _bits(x):
+    return np.ascontiguousarray(x, dtype=np.float64).view(np.uint64)
+
+
+@pytest.mark.cuda
+def test_criteria_kernel_is_numpy_bit_for_bit_on_card(cuda_device):
+    pairs = _criteria_pairs()
+    assert {2, 3, 4, 5} <= {e for k, _, _ in pairs for _, e in k._factors}
+    before = criteria.criteria_cuda.launches
+    for kernel, cols, want in pairs:
+        c = criteria.pack(kernel, "cuda")
+        x = torch.from_numpy(cols).to(cuda_device)
+        got = criteria.criteria_cuda(c, x).cpu().numpy()
+        plain = criteria.criteria_plain(c, x).cpu().numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(plain))
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert criteria.criteria_cuda.launches - before == sum(
+        cols.shape[0] > 0 for _, cols, _ in pairs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 7, 300, 20000])
+def test_criteria_kernel_hand_made_on_card(n, cuda_device):
+    """Exponents 2-5 and -1, an empty criterion, a constant term; columns
+    up to 1000 (every power exact: numpy's bits) and up to 70000 (powers
+    past f64's 53 bits: the plain version's bits, numpy's within an ulp of
+    each factor)."""
+    crits = [((2.0, (("a", 1),)), (3.0, (("b", 2),))),
+             (),
+             ((1.5, ()), (0.5, (("a", 3), ("b", 1)))),
+             ((1.0, (("c", 4),)), (-2.0, (("a", 5), ("c", 1))),
+              (0.25, (("a", 1), ("b", 1), ("c", 2)))),
+             ((1.0, (("b", -1),)), (4.0, (("a", 2), ("c", -1))))]
+    kernel = symbolic.CriteriaKernel(crits, {"a": 0, "b": 1, "c": 2})
+    c = criteria.pack(kernel, "cuda")
+    rng = np.random.default_rng(n)
+    for high in (1000, 70000):
+        cols = rng.integers(1, high + 1, size=(n, 3)).astype(np.float64)
+        x = torch.from_numpy(cols).to(cuda_device)
+        got = criteria.criteria_cuda(c, x).cpu().numpy()
+        assert got.shape == (n, len(crits))
+        np.testing.assert_array_equal(
+            _bits(got), _bits(criteria.criteria_plain(c, x).cpu().numpy()))
+        want = kernel(cols)
+        if high == 1000:
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+        else:  # within 1e-14 of the criterion's sum of |terms|
+            mags = symbolic.CriteriaKernel(
+                [tuple((abs(w), pw) for w, pw in cr) for cr in crits],
+                {"a": 0, "b": 1, "c": 2})(cols)
+            assert (np.abs(got - want) <= 1e-14 * mags).all()
+
+
+@pytest.mark.cuda
+def test_search_with_the_criteria_route_on_card(cuda_device):
+    ein, arch = matmul("mm", 64, 64, 64), tpu_v4i_like()
+    off, off_stats = tcm_map(ein, arch)
+    before = criteria.criteria_cuda.launches
+    try:
+        symbolic.set_jit(True)
+        on, on_stats = tcm_map(ein, arch)
+    finally:
+        symbolic.set_jit(False)
+    assert criteria.criteria_cuda.launches > before
+    assert (on.energy, on.latency, on.edp) == (off.energy, off.latency,
+                                               off.edp)
+    assert on.mapping == off.mapping
+
+    def counters(s):
+        return {k: v for k, v in dataclasses.asdict(s).items()
+                if not k.startswith("t_")}
+
+    assert counters(on_stats) == counters(off_stats)

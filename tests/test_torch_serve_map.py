@@ -353,7 +353,11 @@ def test_mapper_packages_import_without_torch_jax_or_repro():
     """Search workers import these modules: they must not load torch (nor
     touch the parent's CUDA context), jax or the reference package.  The
     model stack beside ``models.config`` computes with torch and is not
-    imported by the mapper.  The data pipeline is numpy only as well."""
+    imported by the mapper.  The data pipeline is numpy only as well.
+    Only ``TCM_JIT=1`` changes that, by design: a worker's first criteria
+    call then imports ``kernels.criteria`` (torch) and opens a CUDA context
+    of its own, because the route runs the search's inner step on the card
+    (``tests/test_torch_criteria.py`` holds the switch off to no torch)."""
     pkgs = ("core", "dse", "gap", "testing", "obs", "netmap", "serve_map",
             "configs", "models", "data")
     with_torch = {"serve_map/measure.py"} | {
