@@ -78,8 +78,9 @@ Phases (each prints its own lines; any failure exits nonzero):
      timed as its own phase, over qwen1.5-0.5b's 12 main-path shapes on
      the card's plan arch, GPT-3's Q projection and the fused QK -> AV pair
      on the TPU-v4i preset: (b) each searched serially with the route off
-     (every kernel call recorded) and on (launch counts reset before, read
-     after: the criteria kernel's launches), then the fused pair alone
+     (every kernel call recorded) and on (after one call that sets the
+     route up in this process, timed apart; launch counts reset before,
+     read after: the criteria kernel's launches), then the fused pair alone
      with 2 spawned workers off and on (``TCM_JIT=1`` in their
      environment; both pools in one child process, ``mapper_pools``,
      which imports beside the serial runs and (a) and searches after them):
@@ -94,8 +95,12 @@ Phases (each prints its own lines; any failure exits nonzero):
      the heaviest recorded call's kernel at 3 to 20000 rows: numpy on the
      host, the kernel alone, with its copies, the plain version on the
      card, beside the bound (bytes at 3.35 TB/s, f64 operations at the
-     H100's 34 TFLOP/s without tensor cores); one JSON line
-     {"mapper_on_card": {...}};
+     H100's 34 TFLOP/s without tensor cores), the call with its copies
+     taken apart (staging, the C entry: copy in, kernel, copy out and the
+     driver's share; the Python left), the kernel's device time under
+     ``torch.profiler`` against the CUDA events', ``pack``'s time over the
+     recorded kernels, the largest description met and its tile plan,
+     ptxas's report of the kernel; one JSON line {"mapper_on_card": {...}};
   8. the one-device tools (``repro_torch.distributed``, ``launch.dryrun``,
      ``launch.roofline``, ``examples``; torch ops, the matmul kernel in the
      autotune twin): (a) ``compress_decompress`` over seeded gradients
@@ -1451,6 +1456,75 @@ def mapper_pools(launched: float) -> dict:
     return out
 
 
+def criteria_split(c, cols, us) -> dict:
+    """One ``criteria.evaluate`` call of ``cols`` taken apart, in us: the
+    columns copied into this thread's pinned staging (host clock), the C
+    entry alone (``tcm_criteria_eval``, host clock: the copies, the launch
+    and the sync), within it the copy in and the copy out on the same
+    pinned buffers (CUDA events) and the kernel (``us["kernel"]``, CUDA
+    events), the driver's calls and waits left in the entry, and the Python
+    left in ``us["with_copies"]`` (the call's own, host clock)."""
+    cpu, dev = torch.device("cpu"), c.device
+    n, n_syms = cols.shape
+    d = c.desc.nbytes
+    n_in, n_out = d + 8 * n * n_syms, 8 * n * c.n_crits
+    criteria.evaluate(c, cols)  # the buffers sized, the description in
+    st = criteria.staging(dev)
+    view = st.host_in_f64[d // 8:n_in // 8].reshape(n, n_syms)
+    host_in, dev_in, dev_out, host_out = st.ptrs
+    lib = build.lib()
+    rows, threads, _ = criteria.tile_plan(c, n, n_syms)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def entry():
+        build.check(lib.tcm_criteria_eval(
+            dev.index, host_in, dev_in, n_in, d, c.n_factors, c.n_terms,
+            c.n_crits, n, n_syms, rows.bit_length() - 1, threads, dev_out,
+            host_out, stream), "entry")
+
+    out = {"staging": time_call(lambda: np.copyto(view, cols), cpu),
+           "entry": time_call(entry, cpu),
+           "h2d": time_call(lambda: st.dev_in[:n_in].copy_(
+               st.host_in[:n_in], non_blocking=True), dev),
+           "d2h": time_call(lambda: st.host_out[:n_out].copy_(
+               st.dev_out[:n_out], non_blocking=True), dev)}
+    out = {k: v * 1e6 for k, v in out.items()}
+    out["kernel"] = us["kernel"]
+    out["driver"] = out["entry"] - out["h2d"] - out["kernel"] - out["d2h"]
+    out["python"] = us["with_copies"] - out["staging"] - out["entry"]
+    return out
+
+
+def criteria_profiled(c, cols, dev) -> dict:
+    """The criteria kernel under ``torch.profiler``: 10 launches at each of
+    ``CRITERIA_ROWS`` (in that order), the median device time of each
+    count's launches in us, by the kernel's name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    xs = [torch.from_numpy(np.ascontiguousarray(
+        cols[np.arange(n) % len(cols)])).to(dev) for n in CRITERIA_ROWS]
+    for x in xs:
+        criteria.criteria_cuda(c, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            for _ in range(10):
+                criteria.criteria_cuda(c, x)
+            torch.cuda.synchronize()
+    ks = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "criteria_kernel" in e.name),
+                key=lambda e: e.time_range.start)
+    us = [statistics.median(e.time_range.elapsed_us()
+                            for e in ks[10 * i:10 * i + 10])
+          if len(ks) >= 10 * i + 10 else None
+          for i in range(len(CRITERIA_ROWS))]
+    return {"kernels": len(ks), "names": sorted({e.name for e in ks}),
+            "us": us}
+
+
 def phase_mapper_on_card() -> dict:
     """Phase 7b.  The pools' child (``mapper_pools``) starts first and
     imports while (b)'s serial searches and (a) run here; it searches once
@@ -1489,11 +1563,17 @@ def mapper_on_card(child, launched: float) -> dict:
     symbolic.CriteriaKernel.__call__ = record
     try:
         for label, run in workloads:
-            t0 = time.perf_counter()
+            t0, before = time.perf_counter(), len(pairs)
             off[label] = searched(run(None))
-            wall[label] = {"off_s": time.perf_counter() - t0}
+            wall[label] = {"off_s": time.perf_counter() - t0,
+                           "calls": len(pairs) - before}
     finally:
         symbolic.CriteriaKernel.__call__ = numpy_call
+    # the route's set-up in this process (the thread's pinned buffers, the
+    # kernel's first launch), timed apart from the searches
+    t0 = time.perf_counter()
+    criteria.evaluate(criteria.pack(pairs[0][0], "cuda"), pairs[0][1])
+    first_call_s = time.perf_counter() - t0
     criteria.criteria_cuda.launches = 0
     try:
         symbolic.set_jit(True)
@@ -1509,13 +1589,18 @@ def mapper_on_card(child, launched: float) -> dict:
         check(f"search {label}, route on == off (serial)",
               on[label] == off[label],
               f"{len(off[label])} searches, n_expanded "
-              f"{sum(r[4]['n_expanded'] for r in off[label])}; wall off "
+              f"{sum(r[4]['n_expanded'] for r in off[label])}, "
+              f"{wall[label]['calls']} kernel calls; wall off "
               f"{wall[label]['off_s']:.2f} s (with the recording's copies), "
               f"on {wall[label]['on_s']:.2f} s")
-    check("criteria kernel launched by the serial searches", launches > 0,
-          f"{launches} launches for {len(pairs)} kernel calls")
+    with_rows = sum(1 for k, cols, _ in pairs if cols.shape[0] and k.n_crits)
+    check("criteria kernel launched once a serial call with rows",
+          launches == with_rows > 0,
+          f"{launches} launches for {len(pairs)} kernel calls ({with_rows} "
+          f"with rows); the route's first call in this process "
+          f"{first_call_s * 1e3:.2f} ms")
     rep["serial"] = {"wall_s": wall, "launches": launches,
-                     "calls": len(pairs)}
+                     "calls": len(pairs), "first_call_s": first_call_s}
 
     # (a) every recorded call: the kernel on the card against numpy, bit
     # for bit (a power that rounds: against numpy with the kernel's
@@ -1616,7 +1701,10 @@ def mapper_on_card(child, launched: float) -> dict:
                       "compute_apps": pools[True]["compute_apps"]}
 
     # (c) one evaluation of the heaviest recorded call's kernel (rows times
-    # f64 operations a row), its rows repeated to each count
+    # f64 operations a row), its rows repeated to each count: the kernel
+    # alone, one call with its copies taken apart, the profiler's view of
+    # the kernel; then pack's cost over the recorded kernels, the largest
+    # description met and its tiles, ptxas's report
     kernel, cols, _ = max(pairs, key=lambda p: (
         p[1].shape[0] * descs[id(p[0])].ops_per_row))
     c = descs[id(kernel)]
@@ -1629,18 +1717,58 @@ def mapper_on_card(child, launched: float) -> dict:
               "with_copies": time_call(lambda: criteria.evaluate(c, cn), cpu),
               "plain": time_call(lambda: criteria.criteria_plain(c, x), dev)}
         us = {k: v * 1e6 for k, v in us.items()}
+        split = criteria_split(c, cn, us)
         nbytes = 8 * n * (cn.shape[1] + c.n_crits)
         tb, tf = nbytes / PEAK_BYTES_S, c.ops_per_row * n / PEAK_F64_FLOPS
         rows.append({"rows": n, **{f"{k}_us": v for k, v in us.items()},
+                     "tile": criteria.tile_plan(c, n, cn.shape[1]),
+                     "split_us": split,
                      "bound_us": max(tb, tf) * 1e6,
                      "bound_by": "bytes" if tb >= tf else "operations",
                      "tb": tb, "tf": tf})
-        print(f"  {n} rows x {cn.shape[1]} columns -> {c.n_crits} criteria: "
+        print(f"  {n} rows x {cn.shape[1]} columns -> {c.n_crits} criteria "
+              f"(R, threads, shared memory B {rows[-1]['tile']}): "
               + ", ".join(f"{k} {v:.2f} us" for k, v in us.items())
               + f"; bound {max(tb, tf) * 1e6:.4f} us "
-              f"({rows[-1]['bound_by']})")
+              f"({rows[-1]['bound_by']}); the call: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " us")
+    # a measurement, not a check: inside the whole script the profiler has
+    # traced only some of the launches (26 of 60 on an H100)
+    profiled = criteria_profiled(c, cols, dev)
+    print(f"  the kernel under torch.profiler: {profiled['kernels']} of "
+          f"{10 * len(CRITERIA_ROWS)} launches traced ({profiled['names']}); "
+          "median device us by rows "
+          + ", ".join(f"{n}: {profiled['us'][i]} (events "
+                      f"{r['kernel_us']})"
+                      for i, (n, r) in enumerate(zip(CRITERIA_ROWS, rows))))
+    pack_us = []
+    for k in {id(p[0]): p[0] for p in pairs}.values():
+        t0 = time.perf_counter()
+        criteria.pack(k, "cuda")
+        pack_us.append((time.perf_counter() - t0) * 1e6)
+    big = max(descs.values(), key=lambda d: d.desc.nbytes)
+    ptxas = [ln for ln in build.ptxas_summary(build.ptxas_log)
+             if ln.startswith("criteria_kernel")]
+    plans = {n: criteria.tile_plan(big, n, big.n_cols) for n in CRITERIA_ROWS}
+    print(f"  pack over {len(pack_us)} kernels: median "
+          f"{statistics.median(pack_us):.1f} us, mean "
+          f"{statistics.fmean(pack_us):.1f} us; largest description "
+          f"{big.desc.nbytes} B ({big.n_terms} terms, {big.n_factors} "
+          f"factors, {big.n_crits} criteria, {big.n_cols} columns), (R, "
+          f"threads, shared memory B) by rows {plans}; ptxas: "
+          f"{ptxas or 'no build log'}")
     rep["cost"] = [{k: v for k, v in r.items() if k not in ("tb", "tf")}
                    for r in rows]
+    rep["profiled_kernel_us"] = profiled["us"]
+    rep["pack_us"] = {"kernels": len(pack_us),
+                      "median": statistics.median(pack_us),
+                      "mean": statistics.fmean(pack_us)}
+    rep["largest_description"] = {
+        "bytes": big.desc.nbytes, "terms": big.n_terms,
+        "factors": big.n_factors, "criteria": big.n_crits,
+        "columns": big.n_cols,
+        "tiles": {str(n): list(p) for n, p in plans.items()}}
+    rep["ptxas"] = ptxas
     tb, tf = sum(r["tb"] for r in rows), sum(r["tf"] for r in rows)
     rep["kernel"] = {
         "name": "criteria", "route": "cuda",
@@ -1652,7 +1780,8 @@ def mapper_on_card(child, launched: float) -> dict:
         "bound_ms": sum(r["bound_us"] for r in rows) / 1e3,
         "bound_by": "bytes" if tb >= tf else "operations",
         "library_ms": None,
-        "numpy_ms": sum(r["numpy_us"] for r in rows) / 1e3}
+        "numpy_ms": sum(r["numpy_us"] for r in rows) / 1e3,
+        "with_copies_ms": sum(r["with_copies_us"] for r in rows) / 1e3}
     print(json.dumps({"mapper_on_card": rep}))
     return rep
 

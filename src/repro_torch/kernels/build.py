@@ -102,9 +102,13 @@ def lib() -> ctypes.CDLL:
                 p, p, p, p, i, i, i, i, i, i, i64p, i64p, i64p, i, i, i, f,
                 i, p]
             so.tcm_flash_attention_launch.restype = i
-            so.tcm_criteria_launch.argtypes = (
-                [p, ctypes.c_longlong, i] + [p] * 7 + [i, p, p])
+            ll = ctypes.c_longlong
+            so.tcm_criteria_launch.argtypes = [p, i, i, i, i, p, ll, i, i, i,
+                                               p, p]
             so.tcm_criteria_launch.restype = i
+            so.tcm_criteria_eval.argtypes = [i, p, p, ll, i, i, i, i, ll, i,
+                                             i, i, p, p, p]
+            so.tcm_criteria_eval.restype = i
             so.tcm_error_string.argtypes = [i]
             so.tcm_error_string.restype = ctypes.c_char_p
             _lib = so
@@ -128,7 +132,8 @@ def _kernel_name(mangled: str) -> str:
 
 def ptxas_summary(log: str) -> list:
     """One line per compiled kernel from a ``-Xptxas -v`` log: its
-    registers and spill bytes, and any performance loss ptxas reports."""
+    registers, static shared memory where it has any, and spill bytes, and
+    any performance loss ptxas reports."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -136,7 +141,9 @@ def ptxas_summary(log: str) -> list:
         elif "spill stores" in line:
             spill = line.strip()
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
-            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            smem = f"{smem.group(1)} bytes static smem, " if smem else ""
+            out.append(f"{name}: {m.group(1)} registers, {smem}{spill}")
             name = None
         elif m := re.search(r"Performance Loss: (.*) in the function "
                             r"'(\w+)'", line):

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) primitives for the hand-written kernels: mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and the bf16 wgmma shapes the
+// tile loads and 1-D bulk copies, wgmma shared-memory descriptors and the bf16 wgmma shapes the
 // matmul uses (N = 64, 128, 192, 256), and the warpgroup register
 // hand-over (setmaxnreg).
 //
@@ -73,6 +73,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// Copy ``bytes`` contiguous bytes from global ``src`` into shared memory at
+// ``dst`` (a 1-D bulk copy: both addresses 16-byte aligned, ``bytes`` a
+// nonzero multiple of 16); completion adds them to ``bar``'s transaction
+// count.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

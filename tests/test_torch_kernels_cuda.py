@@ -4,13 +4,16 @@ the training path on the card against the CPU.
 Duplicates of ``chip_smoke.py`` phase 2 at the reference tests' shapes and
 tolerances, of phase 6 (a)-(b) at smoke size, of phase 8 (a)'s
 compression check, and of phase 7b's criteria kernel against its plain
-version and numpy, bit for bit, with the search's route on.  Like the
+version and numpy, bit for bit (at a tile's edges and an odd row width,
+through ``evaluate``'s pinned round trip, from two threads at once), with
+the search's route on.  Like the
 port, this file imports no JAX.  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import pytest
@@ -303,6 +306,86 @@ def test_criteria_kernel_hand_made_on_card(n, cuda_device):
                 [tuple((abs(w), pw) for w, pw in cr) for cr in crits],
                 {"a": 0, "b": 1, "c": 2})(cols)
             assert (np.abs(got - want) <= 1e-14 * mags).all()
+
+
+# hand-made criteria over 5 columns (an odd row width): exponents 2-5 and
+# -1, an empty criterion, a constant term
+ODD_CRITS = [((2.0, (("a", 1),)), (3.0, (("b", 2),))),
+             (),
+             ((1.5, ()), (0.5, (("a", 3), ("e", 1)))),
+             ((1.0, (("c", 4),)), (-2.0, (("a", 5), ("c", 1))),
+              (0.25, (("a", 1), ("b", 1), ("c", 2)))),
+             ((1.0, (("b", -1),)), (4.0, (("e", 2), ("c", -1))))]
+ODD_INDEX = {"a": 0, "b": 1, "c": 2, "d": 3, "e": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [0, 1])
+@pytest.mark.parametrize("n", [3, 1055, 16863, 16864, 16865, 70001])
+def test_criteria_kernel_at_tile_edges(n, skip, cuda_device):
+    """Tiles of 1 to 128 rows, the last one full or short by one row or
+    more; 5 columns, so a tile's bytes are not always a multiple of 16, and
+    with ``skip`` the columns start 40 bytes into their buffer (8 past a
+    16-byte boundary): the first and last value of a tile outside the bulk
+    copy."""
+    kernel = symbolic.CriteriaKernel(ODD_CRITS, ODD_INDEX)
+    c = criteria.pack(kernel, "cuda")
+    rows, _, _ = criteria.tile_plan(c, n, len(ODD_INDEX))
+    assert rows & (rows - 1) == 0 and (n == 3 or n // rows > 1)
+    cols = np.random.default_rng(n).integers(
+        1, 1001, size=(n + skip, len(ODD_INDEX))).astype(np.float64)
+    x = torch.from_numpy(cols).to(cuda_device)[skip:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8 * skip
+    got = criteria.criteria_cuda(c, x).cpu().numpy()
+    np.testing.assert_array_equal(
+        _bits(got), _bits(criteria.criteria_plain(c, x).cpu().numpy()))
+    np.testing.assert_array_equal(_bits(got), _bits(kernel(cols[skip:])))
+
+
+@pytest.mark.cuda
+def test_criteria_round_trip_is_the_kernel(cuda_device):
+    """``evaluate``'s pinned round trip against ``criteria_cuda`` on every
+    call the fused search records; each launches once per call with rows."""
+    pairs = _criteria_pairs()
+    descs = {}
+    before = criteria.criteria_cuda.launches
+    for kernel, cols, want in pairs:
+        c = descs.setdefault(id(kernel), criteria.pack(kernel, "cuda"))
+        got = criteria.evaluate(c, cols)
+        assert got.shape == want.shape
+        direct = criteria.criteria_cuda(
+            c, torch.from_numpy(cols).to(cuda_device)).cpu().numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(direct))
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert criteria.criteria_cuda.launches - before == 2 * sum(
+        cols.shape[0] > 0 for _, cols, _ in pairs)
+
+
+@pytest.mark.cuda
+def test_criteria_round_trip_from_two_threads(cuda_device):
+    """Two threads evaluating at once, each on its own kernels and rows,
+    get their own criteria: the staging buffers are the thread's."""
+    pairs = _criteria_pairs()
+    halves = [pairs[0::2][:400], pairs[1::2][:400]]
+    start, bad, bufs = threading.Barrier(2), [], []
+
+    def run(mine):
+        descs = {}
+        start.wait()
+        for kernel, cols, want in mine:
+            c = descs.setdefault(id(kernel), criteria.pack(kernel, "cuda"))
+            if not np.array_equal(_bits(criteria.evaluate(c, cols)),
+                                  _bits(want)):
+                bad.append(cols.shape)
+        bufs.append(criteria.staging(torch.device("cuda", 0)))
+
+    threads = [threading.Thread(target=run, args=(h,)) for h in halves]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not bad
+    assert len(bufs) == 2 and bufs[0] is not bufs[1]
 
 
 @pytest.mark.cuda
