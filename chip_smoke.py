@@ -122,14 +122,18 @@ Phases (each prints its own lines; any failure exits nonzero):
      the dry-run over the reference's production meshes through its CLI,
      each cell in a child process of its own, side by side: rank 0 of a
      fake group of 256 or 512 ranks, fake tensors on the card, for
-     qwen1.5-0.5b's train_4k on the pod mesh (dp) and minitron-8b's
+     qwen1.5-0.5b's train_4k on the pod mesh (dp), minitron-8b's
      decode_32k on the pod and multipod meshes (tp_fsdp, its 32 layers
-     gathered over 'data' and over ('pod', 'data')), each through
-     ``roofline.analyze_cell``: no error, 256 or 512 devices, collective
-     bytes above 0, the collective term beside compute and memory
+     gathered over 'data' and over ('pod', 'data')), mamba2-130m's
+     long_500k and recurrentgemma-2b's prefill_32k on the pod mesh
+     (tp_fsdp, the recurrent blocks on each rank's channels), each
+     through ``roofline.analyze_cell``: no error, 256 or 512 devices,
+     collective bytes above 0, the collective term beside compute and
+     memory; the last two held against the reference's own compile
+     (``MESH_REFERENCE``: FLOPs within 0.8-1.25x, peak at most 2.0x)
      (timed as its own phase, "8e", the wait that is left, and by its
-     children's wall from their start).  The six tracing children trace on
-     the host, one process a cell, single-threaded: (b)'s start before
+     children's wall from their start).  The eight tracing children trace
+     on the host, one process a cell, single-threaded: (b)'s start before
      phase 6 (prefill_32k alone takes minutes) and (e)'s before phase 7;
      all of them have ended before phase 7b (the wait is timed as "wait"),
      so 7b and (c), whose times are host-bound, run beside no tracing.
@@ -1801,12 +1805,30 @@ E2E_STEPS = 20  # train_e2e's 300 steps, cut for time
 # (e): the dry-run over the reference's production meshes, rank 0 of 256
 # or 512: qwen's train_4k in dp (one row a rank) and minitron-8b's
 # decode_32k in tp_fsdp, its 32 layers split over data 16 and over
-# ('pod', 'data') 32 (prefill_32k is left out: its one-device trace alone
-# takes minutes)
+# ('pod', 'data') 32; the recurrent blocks over a model-split mesh:
+# mamba2-130m's long_500k (one row: 'embed' contracted over 'data') and
+# recurrentgemma-2b's prefill_32k (the RG-LRU on each rank's channels),
+# both tp_fsdp on pod (phi3.5-moe's prefill_32k is left out: its trace
+# alone takes minutes)
 MESH_CELLS = (("qwen1.5-0.5b", "train_4k", "pod"),
               ("minitron-8b", "decode_32k", "pod"),
-              ("minitron-8b", "decode_32k", "multipod"))
+              ("minitron-8b", "decode_32k", "multipod"),
+              ("mamba2-130m", "long_500k", "pod"),
+              ("recurrentgemma-2b", "prefill_32k", "pod"))
 MESH_DRYRUN_TIMEOUT_S = 300
+# the reference's rank 0 in the cells held against it: (hlo.per_device_
+# flops, memory_per_device.peak_live_bytes) of its own compile on a host
+# CPU, ``PYTHONPATH=src python -m repro.launch.dryrun --arch A --shape S
+# --mesh pod`` (jax 0.9.0); a cell is held when the port's FLOPs are
+# within MESH_FLOPS_BOUNDS of these and its peak at most MESH_PEAK_BOUND
+# times (``tests/dryrun_sweep_compare.py``'s bounds)
+MESH_REFERENCE = {
+    ("mamba2-130m", "long_500k", "pod"): (5627136.0, 16909736),
+    ("recurrentgemma-2b", "prefill_32k", "pod"): (33738478059520.0,
+                                                  7168983388),
+}
+MESH_FLOPS_BOUNDS = (0.8, 1.25)
+MESH_PEAK_BOUND = 2.0
 
 
 def free_port() -> int:
@@ -2098,8 +2120,22 @@ def check_mesh_dryrun(tmp: str, started: tuple) -> dict:
               f"{roof['compute_s']:.4g} s, memory {roof['memory_s']:.4g} s, "
               f"collective {roof['collective_s']:.4g} s "
               f"({roof['dominant']})")
-        rows.append({"arch": arch, "shape": shape, "mesh": mesh,
-                     "dryrun": res, "roofline": roof})
+        row = {"arch": arch, "shape": shape, "mesh": mesh, "dryrun": res,
+               "roofline": roof}
+        if (arch, shape, mesh) in MESH_REFERENCE:
+            ref_flops, ref_peak = MESH_REFERENCE[arch, shape, mesh]
+            row["flops_ratio"] = res["hlo"]["per_device_flops"] / ref_flops
+            row["peak_ratio"] = mem["peak_live_bytes"] / ref_peak
+            lo, hi = MESH_FLOPS_BOUNDS
+            check(f"dry-run {arch} {shape} on {mesh} held against the "
+                  f"reference's compile",
+                  lo <= row["flops_ratio"] <= hi
+                  and row["peak_ratio"] <= MESH_PEAK_BOUND,
+                  f"FLOPs {row['flops_ratio']:.3f}x the reference's "
+                  f"{ref_flops:.6g} (bounds {lo}-{hi}), peak "
+                  f"{row['peak_ratio']:.3f}x its {ref_peak} B (bound "
+                  f"{MESH_PEAK_BOUND})")
+        rows.append(row)
     return {"cells": rows, "wall_s": time.perf_counter() - t0}
 
 
@@ -3063,7 +3099,7 @@ def main() -> int:
     served = timed("5", phase_served_model)
     if FAILURES:
         return 1
-    # phase 8's six dry-run children trace on the host, one process a cell
+    # phase 8's eight dry-run children trace on the host, one process a cell
     # (single-threaded): (b)'s beside phase 6 (prefill_32k alone takes
     # minutes), (e)'s beside phase 7; phase 7b waits for all of them
     with tempfile.TemporaryDirectory(prefix="tcm-dryrun-") as tmp:

@@ -32,6 +32,7 @@ the model (positions, masks) mix with DTensors as replicated ones.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -367,7 +368,11 @@ def attention_pspecs(q_shape, kv_shape) -> Tuple[PartitionSpec,
     for q (B, Sq, Hq, Dh) and k/v (B, Sk, Hkv, Dh): batch over the mode's
     batch axes and heads over its 'heads' axes where both head counts
     divide, so each rank's q heads see their own kv heads (GQA groups
-    stay whole).  The sequence is never split: attention is exact per
+    stay whole).  Where the q heads divide and the kv heads do not, but
+    each rank's q heads share one kv head (phi3.5-moe's 32 q heads and 8
+    kv heads over 16), q keeps its split and k/v stay whole along their
+    heads: each rank attends with the one kv head its q heads read
+    (``_attend``).  The sequence is never split: attention is exact per
     (batch, head), not per sequence shard.  Raises RuntimeError outside
     ``activation_sharding_ctx``."""
     if active() is None:
@@ -381,8 +386,46 @@ def attention_pspecs(q_shape, kv_shape) -> Tuple[PartitionSpec,
     kv = spec_to_pspec(("batch", None, "kv", None), rules, mesh,
                        dims=(q_shape[0],) + tuple(kv_shape[1:]))
     if q[2] != kv[2]:
-        q, kv = P(q[0], None, None, None), P(kv[0], None, None, None)
+        rep = q_shape[2] // kv_shape[2]
+        local = (q_shape[2] // _extent(mesh, q[2])) if q[2] else 0
+        if not (local and kv[2] is None and rep % local == 0):
+            q = P(q[0], None, None, None)
+        kv = P(kv[0], None, None, None)
     return q, kv
+
+
+def _heads_dims(dmesh, mode: str) -> Tuple[int, ...]:
+    """The mesh dims that the mode's 'heads' rule maps to."""
+    axes = spec_to_pspec(("heads",), RULES[mode], as_mesh(dmesh))[0]
+    if axes is None:
+        return ()
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    return tuple(dmesh.mesh_dim_names.index(a) for a in axes)
+
+
+def _flat_coord(dmesh, dims) -> int:
+    coord, flat = dmesh.get_coordinate(), 0
+    for d in dims:
+        flat = flat * dmesh.size(d) + coord[d]
+    return flat
+
+
+def kv_group(q_shape, kv_shape) -> Optional[Tuple]:
+    """Inside the active context, where neither head count divides the
+    extent n of the mode's 'heads' axes but n is twice the kv heads
+    (yi-34b's 56 q and 8 kv heads over 16): (the mesh dims of those axes,
+    c = 2 ranks a kv head, this rank's kv head).  Each pair of ranks
+    attends with one kv head and its q heads, as the reference's GSPMD
+    places each kv head on 2 devices; else None.  Only c = 2 is taken: the
+    two halves a head's output is summed from add up to it exactly, where
+    more shares could round in the all-reduce."""
+    dmesh, mode = active()
+    dims = _heads_dims(dmesh, mode)
+    n = math.prod(dmesh.size(d) for d in dims)
+    hq, hkv = q_shape[2], kv_shape[2]
+    if not dims or hq % n == 0 or hkv < 2 or n != 2 * hkv:
+        return None
+    return dims, 2, _flat_coord(dmesh, dims) // 2
 
 
 def local_offset(x, dim: int) -> int:
@@ -444,10 +487,14 @@ def layer(stack, i: int):
     from the rank that holds it to the others of its group, keeping its
     other placements.  In the backward the layer's gradient is reduced
     onto that rank: the reference's reduce-scatter of a layer-sharded
-    stack."""
+    stack.  A stack whose layers stay whole has its layer's gradient laid
+    out as the layer is (``pinned``) before it reaches the stack: else
+    the indexing's backward makes zeros of the whole stack in the
+    gradient's layout, which over a split 'embed' or 'heads' is every
+    rank's whole stack (yi-34b's 60 layers over the 16x16 mesh)."""
     if is_dtensor(stack) and any(p.is_shard(0) for p in stack.placements):
         return _LayerGather.apply(stack, i)
-    return stack[i]
+    return pinned(stack[i])
 
 
 def _group(mesh, dims: Tuple[int, ...]):
@@ -543,18 +590,72 @@ class _LayerGather(torch.autograd.Function):
         return _from_local(out, mesh, pl, shape), None
 
 
+def channel_layout(shape) -> Optional[PartitionSpec]:
+    """The placements of a recurrent block's channels (B, S, C) inside
+    the active context: rows by the mode's 'batch' rule and channels by
+    its 'mlp' rule, each gated by divisibility, as the reference lays out
+    ``w_in``'s, ``w_x``'s and ``conv``'s columns (``("embed", "mlp")``,
+    ``(None, "mlp")``).  None where no mesh dim of extent above 1 splits
+    the channels (``dp``, a mesh whose 'model' extent is 1, or 'mlp' on
+    an axis the batch took): the block then runs on each rank's rows
+    (``batch_local``)."""
+    mesh, mode = active()
+    mesh = as_mesh(mesh)
+    pspec = spec_to_pspec(("batch", None, "mlp"), RULES[mode], mesh,
+                          dims=tuple(shape))
+    if pspec[2] is None or _extent(mesh, pspec[2]) == 1:
+        return None
+    return pspec
+
+
+def split_columns(w):
+    """The DTensor weight ``w`` (rows, columns) with its columns split as
+    the active mode's 'mlp' rule splits them (divisibility-gated) on the
+    mesh dims where ``w`` is replicated, its other placements kept: a
+    local slice, no collective.  Each rank then projects onto its own
+    columns only."""
+    from torch.distributed.tensor import Shard
+
+    mesh, mode = active()
+    entry = spec_to_pspec((None, "mlp"), RULES[mode], as_mesh(mesh),
+                          dims=tuple(w.shape))[1]
+    pl = list(w.placements)
+    names = tuple(w.device_mesh.mesh_dim_names)
+    for a in (() if entry is None else
+              entry if isinstance(entry, tuple) else (entry,)):
+        i = names.index(a)
+        if w.device_mesh.size(i) > 1 and not pl[i].is_shard():
+            pl[i] = Shard(1)
+    return _moved(w, pl)
+
+
+def summed_where_split(pl_in, pl_run) -> Tuple:
+    """The gradient placements of a ``local_map`` input laid out by
+    ``pl_in`` when the function runs split as ``pl_run``: a partial sum
+    on every mesh dim where the input is whole and the run is split (each
+    rank's rows or channels contribute), the input's own layout
+    elsewhere."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if (not a.is_shard() and b.is_shard()) else a
+                 for a, b in zip(pl_in, pl_run))
+
+
 def batch_local(fn, x, params: Dict, state: Optional[Dict] = None):
     """``fn(x, params, state) -> (out, new_state)`` on plain tensors, run on
     each rank's share of the batch under ``local_map``: every parameter
     whole on every rank, ``x`` (B, S, d) with its sequence whole, the
     batch split as the state's batch is (the cache rule), or without a
     state as the mode's 'batch' rule splits it.  The recurrent blocks
-    (RG-LRU, SSD) mix channels in their gates and scan the sequence, so a
-    rank runs the whole block on its rows, as the reference's compiled
-    step does per device once GSPMD has gathered the channels.  The
-    parameters' gradients are partial sums over the mesh dims that split
-    the batch, reduced by the train step's constraint.  Returns (out with
-    the batch's split, the new state laid out as ``state`` is, or None
+    (RG-LRU, SSD) run so where the mode splits no channels
+    (``channel_layout`` is None: ``dp``, or a 'model' extent of 1), where
+    no rank has a share of the channels to run.  Where it splits them,
+    the blocks run on each rank's channels instead
+    (``models.rglru._rglru_sharded``, ``models.ssm._ssm_sharded``), as the
+    reference's compiled step keeps them split.  The parameters'
+    gradients are partial sums over the mesh dims that split the batch,
+    reduced by the train step's constraint.  Returns (out with the
+    batch's split, the new state laid out as ``state`` is, or None
     without a state)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map

@@ -2,8 +2,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b \\
       --shape train_4k [--mesh one|pod|multipod|both] [--device cpu]
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh both]
-Results land in experiments/dryrun/<arch>__<shape>__<mesh>.json.
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh both] \\
+      [--by-op]
+Results land in experiments/dryrun/<arch>__<shape>__<mesh>.json;
+``--by-op`` adds each cell's FLOPs and peak-live bytes by op.  Cells are
+traced one after another; to trace them side by side, run one cell a
+process (``--arch A --shape S --mesh M``), as the README shows.
 
 Port of ``repro.launch.dryrun``.  The reference lowers and compiles each
 cell's jit'd step against a 256- or 512-device mesh and reads XLA's memory
@@ -221,13 +225,20 @@ class _Counters(TorchDispatchMode):
     itself.)
     """
 
-    def __init__(self):
+    def __init__(self, by_op: bool = False):
         super().__init__()
         self.ops = self.bytes = self.flops = 0
         self.live = self.peak = 0
         self.collectives: Dict[str, int] = {}
         self._sizes = WeakIdKeyDictionary()
         self.hidden = _Pause()
+        # with ``by_op``: FLOPs by op and operand shapes, and the bytes
+        # live at the peak by the op (and output shape) that made them
+        self.by_op = by_op
+        self.flops_by: Dict[str, int] = {}
+        self._live_by: Dict[str, int] = {}
+        self.peak_by: Dict[str, int] = {}
+        self._maker = "arguments"
 
     def track(self, t: torch.Tensor, like: Optional[torch.Tensor] = None
               ) -> None:
@@ -246,15 +257,22 @@ class _Counters(TorchDispatchMode):
         n = st.nbytes()
         if t.device.type == "cuda":
             n = -(-n // 512) * 512
-        held = self._sizes[st] = [n, 1]  # bytes, storages holding them
+        # bytes, storages holding them, the op that made them
+        held = self._sizes[st] = [n, 1, self._maker]
         weakref.finalize(st, self._free, held)
         self.live += n
+        if self.by_op:
+            self._live_by[held[2]] = self._live_by.get(held[2], 0) + n
+            if self.live > self.peak:
+                self.peak_by = dict(self._live_by)
         self.peak = max(self.peak, self.live)
 
     def _free(self, held: list) -> None:
         held[1] -= 1
         if not held[1]:
             self.live -= held[0]
+            if self.by_op:
+                self._live_by[held[2]] -= held[0]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -270,11 +288,17 @@ class _Counters(TorchDispatchMode):
         self.ops += 1
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
+        if self.by_op:
+            self._maker = f"{name} -> {_shapes(outs)}"
         for t in outs:
             self.track(t)
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            f = flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += f
+            if self.by_op:
+                key = f"{name} {_shapes(tree_flatten(args)[0])}"
+                self.flops_by[key] = self.flops_by.get(key, 0) + f
         if name in COLLECTIVES:
             kind, at = COLLECTIVES[name]
             self.collectives[kind] = self.collectives.get(kind, 0) + sum(
@@ -319,6 +343,11 @@ def _hidden_propagation(pause: _Pause):
         yield
     finally:
         ShardingPropagator._propagate_tensor_meta_non_cached = run
+
+
+def _shapes(ts) -> str:
+    return " ".join("x".join(map(str, t.shape)) or "()" for t in ts
+                    if isinstance(t, torch.Tensor))
 
 
 def _nbytes(x) -> int:
@@ -396,14 +425,16 @@ def make_inputs(cfg: ModelConfig, cell: Cell, device, microbatches: int = 1,
     return decode_step, (params, batch["tokens"], fill_cache(cache, S - 1))
 
 
-def count(step: Callable, args: tuple) -> Dict:
+def count(step: Callable, args: tuple, by_op: bool = False) -> Dict:
     """Runs ``step(*args)`` once under the counters and returns the
     reference's ``memory_per_device``, ``cost_analysis`` and ``hlo``
-    blocks, for this rank (of a DTensor, its local tensor)."""
+    blocks, for this rank (of a DTensor, its local tensor); with
+    ``by_op``, also ``by_op``: the FLOPs by op and operand shapes, and
+    the bytes live at the peak by the op that made them."""
     arg_tensors = _tensors(args)
     arg_storages = {t.untyped_storage()._cdata for t in arg_tensors}
     arg_bytes = sum(_nbytes(t) for t in arg_tensors)
-    c = _Counters()
+    c = _Counters(by_op)
     for t in arg_tensors:
         c.track(t)
     t0 = time.perf_counter()
@@ -411,7 +442,9 @@ def count(step: Callable, args: tuple) -> Dict:
         out = _tensors(step(*args))
     trace_s = time.perf_counter() - t0
     aliased = [t.untyped_storage()._cdata in arg_storages for t in out]
-    return {
+    extra = ({"by_op": {"flops": c.flops_by, "peak_live": c.peak_by}}
+             if by_op else {})
+    return {**extra,
         "memory_per_device": {
             "argument_bytes": arg_bytes,
             "output_bytes": sum(_nbytes(t) for t, a in zip(out, aliased)
@@ -437,7 +470,8 @@ def count(step: Callable, args: tuple) -> Dict:
 
 def trace_step(cfg: ModelConfig, cell: Cell, device, *,
                microbatches: int = 1, oc: Optional[OptConfig] = None,
-               mesh: Optional[Mesh] = None, mode: str = "tp") -> Dict:
+               mesh: Optional[Mesh] = None, mode: str = "tp",
+               by_op: bool = False) -> Dict:
     """``cell``'s step on ``device`` once, under the counters, in
     ``FakeTensorMode`` (nothing allocated).  With ``mesh`` (a ``Mesh``
     description), rank 0 of it: this process joins a fake group of
@@ -449,12 +483,13 @@ def trace_step(cfg: ModelConfig, cell: Cell, device, *,
     device = torch.device(device)
     if mesh is None:
         with FakeTensorMode():
-            return count(*make_inputs(cfg, cell, device, microbatches, oc))
+            return count(*make_inputs(cfg, cell, device, microbatches, oc),
+                         by_op)
     with fake_group(mesh):
         dmesh = device_mesh(mesh, device.type)
         with FakeTensorMode():
             return count(*make_inputs(cfg, cell, device, microbatches, oc,
-                                      dmesh, mode))
+                                      dmesh, mode), by_op)
 
 
 def _fit(a, b, d: Tuple[int, int], n_layers: int):
@@ -500,7 +535,8 @@ def fit_depths(cfg: ModelConfig, mesh: Optional[Mesh] = None,
 
 
 def trace_cell(cfg: ModelConfig, cell: Cell, device, microbatches: int = 1,
-               mesh: Optional[Mesh] = None, mode: str = "tp") -> Dict:
+               mesh: Optional[Mesh] = None, mode: str = "tp",
+               by_op: bool = False) -> Dict:
     """``trace_step`` of ``cell`` at ``cfg``'s depth (over ``mesh`` in
     ``mode`` when given); ``traced_layers`` says which depths were traced.
 
@@ -524,7 +560,7 @@ def trace_cell(cfg: ModelConfig, cell: Cell, device, microbatches: int = 1,
     groups = lm._stack_groups(cfg)
     depths = (None if cell.kind == "train" or len(groups) > 1
               or len(groups[0][0]) > 1 else fit_depths(cfg, mesh, mode))
-    kw = dict(microbatches=microbatches, mesh=mesh, mode=mode)
+    kw = dict(microbatches=microbatches, mesh=mesh, mode=mode, by_op=by_op)
     if depths is None:
         return {**trace_step(cfg, cell, device, **kw), "traced_layers": [L]}
     a, b = (trace_step(cfg.scaled(n_layers=d), cell, device, **kw)
@@ -536,18 +572,24 @@ def trace_cell(cfg: ModelConfig, cell: Cell, device, microbatches: int = 1,
     return out
 
 
+# the entries of each ``by_op`` breakdown a cell's JSON keeps
+BY_OP_KEPT = 40
+
 # the reference's production meshes: --mesh name -> (JSON name, multi_pod)
 MESHES = {"pod": ("pod_16x16", False), "multipod": ("multipod_2x16x16", True)}
 
 
 def run_cell(arch: str, shape: str, serve_param_dtype: str = "bfloat16",
-             microbatches: int = 0, device="cuda", mesh: str = "one") -> dict:
+             microbatches: int = 0, device="cuda", mesh: str = "one",
+             by_op: bool = False) -> dict:
     """The reference's ``run_cell``: the cell's config (serve cells with
     ``serve_param_dtype`` parameters), its sharding mode (the reference's
     per-arch mode, ``dp`` falling back to ``tp_fsdp`` for serve cells) and
     microbatches, traced on ``device`` — on one device (``mesh`` "one",
     where the mode is recorded only), or as rank 0 of the reference's
-    ``pod`` (16x16) or ``multipod`` (2x16x16) mesh in that mode."""
+    ``pod`` (16x16) or ``multipod`` (2x16x16) mesh in that mode.  With
+    ``by_op``, ``by_op`` holds the largest entries of ``count``'s
+    breakdown (``BY_OP_KEPT`` of each), largest first."""
     cell = SHAPES[shape]
     cfg = get_config(arch)
     mode = MODE_OVERRIDES.get(arch, "tp_fsdp")
@@ -570,7 +612,11 @@ def run_cell(arch: str, shape: str, serve_param_dtype: str = "bfloat16",
     t0 = time.perf_counter()
     blocks = trace_cell(cfg, Cell(cell.kind, cell.global_batch,
                                   cell.seq_len), device, microbatches,
-                        m, mode)
+                        m, mode, by_op)
+    if by_op:
+        blocks["by_op"] = {k: dict(sorted(v.items(), key=lambda kv: -kv[1])
+                                   [:BY_OP_KEPT])
+                           for k, v in blocks["by_op"].items()}
     # tracing is the port's lowering and compiling both
     result["lower_s"] = result["compile_s"] = round(
         time.perf_counter() - t0, 1)
@@ -592,6 +638,9 @@ def main(argv=None):
                     help="torch device the fake tensors live on "
                     "(default cuda)")
     ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--by-op", action="store_true",
+                    help="also write each cell's FLOPs and peak-live bytes "
+                    "by op (``by_op``)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     meshes = {"both": ["pod", "multipod"]}.get(args.mesh, [args.mesh])
@@ -601,8 +650,7 @@ def main(argv=None):
     archs = [args.arch] if args.arch else list(ALIASES)
     for arch in archs:
         cfg = get_config(arch)
-        cells = [args.shape] if args.shape else cells_for(cfg)
-        for shape in cells:
+        for shape in [args.shape] if args.shape else cells_for(cfg):
             for mesh in meshes:
                 fn = outdir / f"{arch}__{shape}__{mesh}.json"
                 if fn.exists():
@@ -610,7 +658,8 @@ def main(argv=None):
                     continue
                 print(f"=== {arch} x {shape} x {mesh} ===", flush=True)
                 try:
-                    res = run_cell(arch, shape, device=device, mesh=mesh)
+                    res = run_cell(arch, shape, device=device, mesh=mesh,
+                                   by_op=args.by_op)
                     print(json.dumps(res["memory_per_device"]), flush=True)
                     print(json.dumps(res["hlo"]), flush=True)
                 except Exception as e:  # noqa: BLE001 - recorded per cell

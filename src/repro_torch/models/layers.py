@@ -268,18 +268,64 @@ def _attend(q, k, v, **kw):
     """``flash_attention(q, k, v, **kw)``.  On DTensors it runs per rank
     under ``local_map``, on the layouts of ``sharding.attention_pspecs``:
     attention is independent per (batch, head), so each rank's result is
-    exact, and a sequence sharded by ``act_seq`` is gathered first."""
+    exact, and a sequence sharded by ``act_seq`` is gathered first.  Where
+    q's heads are split and k/v's are whole, a rank attends with the one
+    kv head its q heads read, and the gradient of k/v is a sum over the
+    ranks that split the heads.  Where neither splits but each kv head
+    can go to 2 ranks (``sharding.kv_group``), a rank attends with its kv
+    head and that head's q heads, and the output is the sum over the
+    heads' axes of each rank's share (``_kv_group``)."""
     if not sharding.is_dtensor(q):
         return flash_attention(q, k, v, **kw)
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
     qs, kvs = sharding.attention_pspecs(q.shape, k.shape)
     qp, kvp = sharding.placements(qs, mesh), sharding.placements(kvs, mesh)
-    core = local_map(functools.partial(flash_attention, **kw),
-                     out_placements=list(qp), in_placements=(qp, kvp, kvp),
+    fn, kv_grad = functools.partial(flash_attention, **kw), kvp
+    group = (sharding.kv_group(q.shape, k.shape) if qs[2] is None
+             else None)
+    if group is not None:
+        dims, c, j = group
+        summed = [tuple(Partial() if i in dims else p
+                        for i, p in enumerate(pl)) for pl in (qp, kvp)]
+        core = local_map(
+            functools.partial(_kv_group, j=j, rep=q.shape[2] // k.shape[2],
+                              c=c, **kw),
+            out_placements=list(summed[0]), in_placements=(qp, kvp, kvp),
+            in_grad_placements=(summed[0], summed[1], summed[1]),
+            device_mesh=mesh, redistribute_inputs=True)
+        return sharding._moved(core(q, k, v), qp)
+    if qs[2] is not None and kvs[2] is None:
+        rep = q.shape[2] // k.shape[2]
+        j = sharding.local_index(qp, mesh, q.shape)[2].start // rep
+        kv_grad = tuple(Partial() if p.is_shard(2) else kp
+                        for p, kp in zip(qp, kvp))
+        fn = functools.partial(_one_kv_head, j=j, **kw)
+    core = local_map(fn, out_placements=list(qp),
+                     in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)
     return core(q, k, v)
+
+
+def _one_kv_head(q, k, v, *, j: int, **kw):
+    """``flash_attention`` of a rank's q heads with the kv head ``j`` of
+    the whole k/v, the one they all read."""
+    return flash_attention(q, k[:, :, j:j + 1], v[:, :, j:j + 1], **kw)
+
+
+def _kv_group(q, k, v, *, j: int, rep: int, c: int, **kw):
+    """A rank's share where ``c`` ranks share each kv head: its kv head
+    ``j`` with that head's ``rep`` q heads, scaled by 1/c, zeros on the
+    other heads.  Summed over the ranks each group counts once, exactly
+    (``sharding.kv_group`` gives c = 2: x/2 + x/2 is x, and both ranks of
+    a group compute the same)."""
+    lo = j * rep
+    out = flash_attention(q[:, :, lo:lo + rep], k[:, :, j:j + 1],
+                          v[:, :, j:j + 1], **kw) / c
+    return F.pad(out, (0, 0, lo, q.shape[2] - lo - rep))
 
 
 def _whole_seq(x):
@@ -569,21 +615,34 @@ def _moe(cfg, router, wg, wu, wd, x, e0: int = 0):
 
 
 def _moe_sharded(cfg, p: Params, x):
-    """``_moe`` over a mesh, per rank under ``local_map``, with the
-    reference's global semantics: every rank routes the whole batch
-    (gathered), so capacity, queue positions and the aux loss's means are
-    the batch's, and computes only its experts ('expert' over 'model',
-    the reference's ``("expert", None, None)`` buffer) and, under
-    ``tp_ep``, its slice of their ff dim ('mlp' over 'data').  The output
-    is the sum over the mesh dims that split them (a ``Partial``, reduced
-    by the caller's constraint), and their gradients with respect to the
-    tokens and the router are partial sums the same way.  The aux loss,
-    the same on every rank, is counted once: by the rank at coordinate 0
-    of those dims."""
-    from torch.distributed.tensor import Partial, Replicate
+    """``_moe`` over a mesh with the reference's global semantics (the
+    capacity, the queue positions and the aux loss's means are the whole
+    batch's), each rank keeping its own rows: it routes its rows
+    (``local_map``), gathers only the chosen experts' ids of the batch
+    (ints) to place every (token, k) in its expert's queue, scatters its
+    rows' tokens into the buffer of its experts ('expert' over 'model',
+    the reference's ``("expert", None, None)`` buffer), and the partial
+    buffers are summed over the mesh dims that split the rows (each slot
+    holds one token).  The experts compute on the whole buffer (under
+    ``tp_ep`` their slice of the ff dim, 'mlp' over 'data', whose partial
+    sums are reduced), and each rank combines its rows from its experts:
+    the output is the sum over the experts' mesh dims (a ``Partial``,
+    reduced by the caller's constraint).  So no rank holds the batch's
+    tokens or the (token, k) pairs' rows, which the reference's XLA never
+    materializes either.  The aux loss is computed alike on every rank
+    from the reduced means and the gathered counts."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = x.device_mesh
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    dt = cfg.torch_dtype
+    capacity = int(max(1, math.ceil(T * K * cfg.capacity_factor / E)))
+    x = _whole_seq(x)
+    rows = tuple(pl if pl.is_shard(0) else Replicate() for pl in x.placements)
+    whole = (Replicate(),) * mesh.ndim
     wg, wu, wd = p["wg"], p["wu"], p["wd"]
     # the rules split the three alike: experts over 'model', their ff
     # columns over 'data' under tp_ep; a rank computes with their 'embed'
@@ -591,24 +650,102 @@ def _moe_sharded(cfg, p: Params, x):
     # whole), so it is gathered here and its gradient comes back whole
     w_pl = [sharding._whole_along(w.placements, d)
             for w, d in ((wg, 1), (wu, 1), (wd, 2))]
-    split = [pl.is_shard() for pl in w_pl[0]]
-    whole = (Replicate(),) * mesh.ndim
-    summed = tuple(Partial() if s else Replicate() for s in split)
+    experts = [pl.is_shard(0) for pl in w_pl[0]]
+    ff = [pl.is_shard(2) for pl in w_pl[0]]
+    by_expert = tuple(Shard(0) if e else Replicate() for e in experts)
+
+    def route(xl, router):
+        xt = xl.reshape(-1, D)
+        probs = torch.softmax((xt @ router.float().to(dt)).float(), dim=-1)
+        gate_vals, expert_idx = top_k(probs, K)
+        gate_vals = gate_vals / torch.clamp_min(
+            gate_vals.sum(-1, keepdim=True), 1e-9)
+        shape = xl.shape[:2]
+        return (probs.reshape(*shape, E), gate_vals.reshape(*shape, K),
+                expert_idx.reshape(*shape, K))
+
+    probs, gate_vals, expert_idx = local_map(
+        route, out_placements=(rows, rows, rows), in_placements=(rows, whole),
+        in_grad_placements=(rows, sharding.summed_where_split(whole, rows)),
+        device_mesh=mesh, redistribute_inputs=True)(x, p["router"])
+
+    # every (token, k)'s place in its expert's queue, in the batch's order
+    flat = sharding._moved(expert_idx, whole).to_local().reshape(-1)
+    onehot = (flat[:, None] == torch.arange(E, device=flat.device)).long()
+    ce = onehot.sum(0).float() / (T * K)
+    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(
+        1, flat[:, None])[:, 0].reshape(B, S, K)
+    mine_rows = sharding.local_index(rows, mesh, (B, S, K))[0]
+    pos, fe = pos[mine_rows], flat.reshape(B, S, K)[mine_rows]
+    keep = pos < capacity
     e0 = sharding.local_offset(wg, 0)
-    coord = mesh.get_coordinate()
-    lead = all(c == 0 for c, s in zip(coord, split) if s)
+    n_local = wg.to_local().shape[0]
+    # another rank's experts' pairs go to the scratch slot of expert 0
+    # with weight 0, as dropped ones do (a shape that does not depend on
+    # the routing: the dry-run traces it)
+    mine = (fe >= e0) & (fe < e0 + n_local)
+    fe = torch.where(mine, fe - e0, 0)
+    slot = torch.where(mine & keep, pos, capacity)
+    weight = keep & mine
 
-    def per_rank(xf, router, wg, wu, wd):
-        out, aux = _moe(cfg, router, wg, wu, wd, xf, e0)
-        return out, aux if lead else aux * 0.0
+    def dispatch(xl):
+        xt = xl.reshape(-1, D).to(dt)
+        buf = torch.zeros((n_local, capacity + 1, D), dtype=dt,
+                          device=xl.device)
+        for k in range(K):
+            buf.index_put_((fe[..., k].reshape(-1), slot[..., k].reshape(-1)),
+                           xt, accumulate=True)
+        return (buf,)
 
-    fn = local_map(per_rank, out_placements=(summed, summed),
-                   in_placements=(whole, whole, *w_pl),
-                   in_grad_placements=(summed, summed, *w_pl),
-                   device_mesh=mesh, redistribute_inputs=True)
-    out, aux = fn(x, p["router"], wg, wu, wd)
-    return (constrain(out, ("batch", None, None)),
-            aux.redistribute(mesh, whole))
+    summed_rows = tuple(Shard(0) if e else (Partial() if r.is_shard() else
+                                            Replicate())
+                        for e, r in zip(experts, rows))
+    buf = local_map(
+        dispatch, out_placements=(summed_rows,), in_placements=(rows,),
+        in_grad_placements=(tuple(Partial() if e else r
+                                  for e, r in zip(experts, rows)),),
+        device_mesh=mesh, redistribute_inputs=True)(x)[0]
+    buf = sharding._moved(buf, by_expert)
+
+    def compute(b, wg, wu, wd):
+        h = F.silu(torch.einsum("ecd,edf->ecf", b, wg.to(dt)))
+        u = torch.einsum("ecd,edf->ecf", b, wu.to(dt))
+        return (torch.einsum("ecf,efd->ecd", h * u, wd.to(dt)),)
+
+    summed_ff = tuple(Partial() if f else pl for f, pl in zip(ff, by_expert))
+    y = local_map(compute, out_placements=(summed_ff,),
+                  in_placements=(by_expert, *w_pl),
+                  in_grad_placements=(summed_ff, *w_pl),
+                  device_mesh=mesh, redistribute_inputs=True)(buf, wg, wu, wd)[0]
+    y = sharding._moved(y, by_expert)
+
+    def combine(yl, gl):
+        w = (gl * weight).to(dt).reshape(-1, K)
+        out = None
+        for k in range(K):
+            term = yl[fe[..., k].reshape(-1), slot[..., k].reshape(-1)] \
+                * w[:, k:k + 1]
+            out = term if out is None else out + term
+        return (out.reshape(*gl.shape[:2], D),)
+
+    out_pl = tuple(r if r.is_shard() else (Partial() if e else Replicate())
+                   for e, r in zip(experts, rows))
+    out = local_map(
+        combine, out_placements=(out_pl,), in_placements=(by_expert, rows),
+        in_grad_placements=(tuple(Partial() if r.is_shard() else pl
+                                  for r, pl in zip(rows, by_expert)),
+                            tuple(Partial() if e else r
+                                  for e, r in zip(experts, rows))),
+        device_mesh=mesh, redistribute_inputs=True)(y, gate_vals)[0]
+
+    # load-balancing aux loss (Switch-style): the batch's means, from the
+    # sums of the ranks' rows where a mesh dim splits them
+    if any(r.is_shard() for r in rows):
+        me = sharding._moved(probs.sum((0, 1)), whole) / T
+    else:
+        me = probs.reshape(T, E).mean(0)
+    aux = E * torch.sum(me * ce)
+    return constrain(out, ("batch", None, None)), aux
 
 
 def embedding_params(cfg, gen: torch.Generator) -> Params:

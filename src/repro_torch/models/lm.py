@@ -37,8 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import (constrain, gather_last, is_dtensor,
-                                    layer, map_specs, split_like)
+from ..distributed.sharding import (P, constrain, gather_last, is_dtensor,
+                                    layer, map_specs, redistribute,
+                                    split_like)
 from .config import ModelConfig
 from .layers import (_init, _whole_seq, attention_block, attention_params,
                      cross_attention_cached, cross_kv, embedding_params, mlp,
@@ -390,32 +391,82 @@ def _apply_group(cfg, kinds, count, group_params, x, positions,
     return x, new_caches, aux
 
 
-def _table(params):
-    """The embedding table with its 'embed' dim whole on every rank (under
-    ``tp_fsdp`` it is split over 'data', as the batch is); its vocab
-    keeps its split."""
-    return constrain(params["embed"]["tok"], ("vocab", None))
+def _split(w, dim: int) -> bool:
+    """Whether a mesh dim splits dim ``dim`` of the DTensor ``w``."""
+    return is_dtensor(w) and any(p.is_shard(dim) for p in w.placements)
+
+
+def _for_batch(w, dim: int, x, spec, whole):
+    """The weight ``w`` (the vocabulary by 'embed', its 'embed' dim
+    ``dim``) for a lookup of, or a product with, ``x`` (tokens or
+    activations), laid out by the logical spec ``whole`` ('embed'
+    gathered, as ``tp_fsdp`` splits it over 'data') where ``x``'s batch
+    is split over an axis that splits ``dim`` too and the vocabulary is
+    split, else by its own ``spec``.  There each rank keeps its slice of
+    'embed' (a batch of 1 over the 16x16 mesh; or a vocabulary the 'model'
+    extent does not divide, whose gather would be the whole table): the
+    lookup's columns, or the product's partial sums, are reduced by the
+    caller's constraint, as the reference's GSPMD contracts a split
+    'embed'."""
+    kept = is_dtensor(w) and is_dtensor(x) and not (
+        _split(w, 1 - dim) and any(a.is_shard(dim) and b.is_shard(0) for a, b
+                                   in zip(w.placements, x.placements)))
+    return constrain(w, spec if kept else whole)
+
+
+def _table(params, x):
+    """The embedding table for ``x``, its vocab keeping its split
+    (``_for_batch``)."""
+    return _for_batch(params["embed"]["tok"], 1, x, ("vocab", "embed"),
+                      ("vocab", None))
 
 
 def _embed(cfg, params, tokens):
     dt = cfg.torch_dtype
     # ``F.embedding``, not indexing: a vocab-sharded table is looked up
     # per rank and summed, never gathered
-    e = F.embedding(tokens, _table(params)).to(dt)
+    e = F.embedding(tokens, _table(params, tokens)).to(dt)
     return constrain(e * weak_scalar(math.sqrt(cfg.d_model), dt),
                      ("batch", "act_seq", None))
 
 
+def _rows_beside(x, w, dim: int):
+    """The DTensor ``x`` (B, S, d) laid out for a product with ``w``,
+    whose dim ``dim`` ('embed') is split: its d split as that dim is, and
+    its rows over every other mesh dim, major to minor, as far as they
+    divide B (the reference's GSPMD layout of the head's product when the
+    vocabulary is whole on every rank)."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    emb = tuple(a for a, p in zip(names, w.placements) if p.is_shard(dim))
+    rows = [a for i, a in enumerate(names)
+            if a not in emb and mesh.size(i) > 1]
+    while rows and x.shape[0] % math.prod(mesh.size(names.index(a))
+                                          for a in rows):
+        rows.pop()
+    return redistribute(x, P(tuple(rows) or None, None,
+                             emb if len(emb) > 1 else emb[0]))
+
+
 def _head(cfg, params, x):
-    # the norm and the head are gathered whole along 'embed' (split over
-    # 'data' under ``tp_fsdp``): the batch keeps 'data', and the f32
-    # logits keep their split
+    # the norm is gathered whole along 'embed' (split over 'data' under
+    # ``tp_fsdp``), and the head too where the batch keeps 'data' and the
+    # vocabulary is split (``_for_batch``); a vocabulary the 'model'
+    # extent does not divide stays whole on every rank, so the rows take
+    # its axis where they divide and each rank contracts its slice of
+    # 'embed', as the reference's GSPMD lays them out; the f32 logits keep
+    # their split
     norm = {"scale": constrain(params["final_norm"]["scale"], (None,))}
     x = _whole_seq(rmsnorm(norm, x, cfg.norm_eps))
+    w, vdim = ((params["embed"]["tok"], 0) if cfg.tie_embeddings
+               else (params["lm_head"], 1))
+    if _split(w, 1 - vdim) and not _split(w, vdim):
+        x = _rows_beside(x, w, 1 - vdim)
     if cfg.tie_embeddings:
-        w = _table(params).to(cfg.torch_dtype).T
+        w = _table(params, x).to(cfg.torch_dtype).T
     else:
-        w = constrain(params["lm_head"], (None, "vocab")).to(cfg.torch_dtype)
+        w = _for_batch(w, 0, x, ("embed", "vocab"),
+                       (None, "vocab")).to(cfg.torch_dtype)
     return constrain((x @ w).float(), ("batch", "act_seq", "vocab"))
 
 

@@ -46,7 +46,9 @@ def _causal_conv(xBC, w, conv_state=None):
     xp = torch.cat([pad, xBC], dim=1)  # (B, S+K-1, C)
     windows = xp.unfold(1, K, 1)  # (B, S, C, K)
     out = torch.einsum("bsck,kc->bsc", windows, w.to(xBC.dtype))
-    new_state = xp[:, -(K - 1):] if K > 1 else None
+    # the window copied out: a view would keep all of ``xp`` alive in the
+    # cache (the reference's slice is a copy)
+    new_state = xp[:, -(K - 1):].clone() if K > 1 else None
     return F.silu(out), new_state
 
 
@@ -108,10 +110,15 @@ def ssm_block(cfg, p, x, state=None):
     decode; None for training/prefill.  A state with S > 1 feeds its conv
     window but not its ``h`` (the reference's convention: prefill starts
     the recurrence from zero).  Returns (out, new_state).  Over a mesh
-    each rank runs the block on its rows of the batch
-    (``sharding.batch_local``): the projection's z | xBC | dt columns and
-    the heads' parameters are whole there."""
+    whose mode splits the channels (``d_inner``) each rank runs its
+    channels (``_ssm_sharded``); else each rank runs the block on its
+    rows of the batch (``sharding.batch_local``): the projection's z |
+    xBC | dt columns and the heads' parameters are whole there."""
     if sharding.is_dtensor(x):
+        d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+        layout = sharding.channel_layout((x.shape[0], x.shape[1], d_inner))
+        if layout is not None:
+            return _ssm_sharded(cfg, p, x, state, layout)
         return sharding.batch_local(
             lambda xl, pl, st: ssm_block(cfg, pl, xl, st), x, p, state)
     Bsz, S, D = x.shape
@@ -126,28 +133,131 @@ def ssm_block(cfg, p, x, state=None):
     xs = xs.reshape(Bsz, S, H, P)
     dtm = F.softplus(dtraw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-
-    if state is None or S > 1:
-        # training or prefill-from-scratch: chunked dual form
-        y, h_last = ssd_chunked(cfg, xs, Bm, Cm, dtm, A)
-    else:
-        # recurrent decode: h = h * exp(dt A) + dt B x ; y = C . h
-        h = state["h"]
-        dec = torch.exp(dtm[:, 0] * A[None, :])  # (B,H)
-        upd = torch.einsum("bn,bh,bhp->bhnp", Bm[:, 0].float(), dtm[:, 0],
-                           xs[:, 0].float())
-        h_last = h * dec[..., None, None] + upd
-        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h_last)[:, None]
-
+    y, h_last = _scan(cfg, xs, Bm, Cm, dtm, A,
+                      None if state is None else state["h"])
     y = y + xs.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(Bsz, S, d_inner).to(dt)
-    # gated RMSNorm then output projection
+    out = _gated_out(p, y, z, dt)
+    return out, {"h": h_last, "conv": new_conv}
+
+
+def _scan(cfg, xs, Bm, Cm, dtm, A, h):
+    """y (B, S, H, P) and the last state (B, H, N, P) of the SSD over
+    ``xs`` (B, S, H, P): the chunked dual form for training or a prefill
+    from scratch (``h`` None, or S > 1), else the recurrent decode step
+    h = h * exp(dt A) + dt B x, y = C . h."""
+    if h is None or xs.shape[1] > 1:
+        return ssd_chunked(cfg, xs, Bm, Cm, dtm, A)
+    dec = torch.exp(dtm[:, 0] * A[None, :])  # (B,H)
+    upd = torch.einsum("bn,bh,bhp->bhnp", Bm[:, 0].float(), dtm[:, 0],
+                       xs[:, 0].float())
+    h_last = h * dec[..., None, None] + upd
+    y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h_last)[:, None]
+    return y, h_last
+
+
+def _gated_out(p, y, z, dt):
+    """The gated RMSNorm of ``y`` (B, S, d_inner) and the output
+    projection.  Over a mesh whose mode splits the channels the mean's
+    partial sums are reduced first (one all-reduce of (B, S, 1)) and the
+    product is a partial sum over the channels' axes, reduced by the
+    caller's constraint."""
     y = y * F.silu(z)
-    var = torch.mean(torch.square(y.float()), -1, keepdim=True)
+    if sharding.is_dtensor(y):  # the sum's partial sums reduced, then /n
+        var = sharding.constrain(
+            torch.sum(torch.square(y.float()), -1, keepdim=True),
+            ("batch", None, None)) / y.shape[-1]
+    else:
+        var = torch.mean(torch.square(y.float()), -1, keepdim=True)
     y = (y.float() * torch.rsqrt(var + 1e-6)).to(dt)
     y = y * p["norm_scale"].to(dt)
-    out = y @ p["w_out"].to(dt)
-    return out, {"h": h_last, "conv": new_conv}
+    return y @ p["w_out"].to(dt)
+
+
+def _ssm_sharded(cfg, p, x, state, layout):
+    """``ssm_block`` over a mesh whose mode splits the channels
+    (``d_inner``) over 'mlp''s axes (``layout``, from
+    ``sharding.channel_layout``), as the reference lays out ``w_in``'s,
+    ``norm_scale``'s and ``w_out``'s: each rank runs the SSD on its
+    channels, each channel a head of one (its head's dt, A and D), which
+    is the per-head scan split within heads (mamba2-130m's 24 heads over
+    16 ranks).  The projection: where ``w_in``'s columns are whole over
+    the channels' axes, each rank projects onto its own z and x columns
+    (a local split) and every rank onto B, C and dt, which all heads
+    share; where they are split (a contiguous chunk of z | x | B | C |
+    dt, which matches no rank's channels), the product's columns are
+    gathered (activations, not the weight).  ``conv`` (K x C) and the
+    heads' vectors are small and taken whole.  The gated norm and
+    ``w_out`` run at the DTensor level on the split channels
+    (``_gated_out``).  The new state is gathered into the cache's layout
+    (channels whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    d_inner = H * P
+    dt = cfg.torch_dtype
+    mesh = x.device_mesh
+    run = sharding.placements(layout, mesh)  # (B, S, d_inner)
+    rows = tuple(p_ if p_.is_shard(0) else Replicate() for p_ in run)
+    by_row = tuple(Shard(1) if p_.is_shard(2) else p_ for p_ in run)
+    x = sharding.constrain(x, ("batch", None, None))
+    w = p["w_in"]
+    if any(p_.is_shard(1) for p_ in w.placements):
+        proj = sharding.constrain(x @ w.to(dt), ("batch", None, None))
+        z, xs, rest = torch.split(proj, [d_inner, d_inner, 2 * N + H], -1)
+    else:
+        z, xs = (x @ sharding.split_columns(w[:, i * d_inner:
+                                               (i + 1) * d_inner]).to(dt)
+                 for i in (0, 1))
+        rest = x @ w[:, 2 * d_inner:].to(dt)
+    z = sharding.redistribute(z, layout)
+    xs = sharding.redistribute(xs, layout)
+    rest = sharding.constrain(rest, ("batch", None, None))
+    c0 = sharding.local_offset(xs, 2)
+
+    def core(xl, restl, conv_w, A_log, D, dt_bias, *st):
+        Bsz, S, C = xl.shape
+        head = torch.arange(c0, c0 + C, device=xl.device) // P
+        Bm, Cm, dtraw = torch.split(restl, [N, N, H], dim=-1)
+        own = slice(c0, c0 + C)
+        cols = torch.cat([conv_w[:, own], conv_w[:, d_inner:]], dim=-1)
+        cst = (torch.cat([st[1][..., own], st[1][..., d_inner:]], dim=-1)
+               if st else None)
+        xBC, new_conv = _causal_conv(torch.cat([xl, Bm, Cm], dim=-1), cols,
+                                     cst)
+        xc, Bm, Cm = torch.split(xBC, [C, N, N], dim=-1)
+        dtm = F.softplus(dtraw.float() + dt_bias.float())[..., head]
+        A = -torch.exp(A_log.float())[head]
+        h = None
+        if st:  # (B, H, N, P) -> this rank's channels, (B, C, N, 1)
+            h = st[0].transpose(2, 3).reshape(Bsz, H * P, N)[:, own, :, None]
+        y, h_last = _scan(cfg, xc.reshape(Bsz, S, C, 1), Bm, Cm, dtm, A, h)
+        y = y[..., 0] + xc.float() * D.float()[head]
+        new_x, new_bc = torch.split(new_conv, [C, 2 * N], dim=-1)
+        return y.to(dt), h_last[..., 0], new_x, new_bc
+
+    whole = (Replicate(),) * mesh.ndim
+    ins = [xs, rest, p["conv"], p["A_log"], p["D"], p["dt_bias"]]
+    in_pl = [run, rows, whole, whole, whole, whole]
+    if state:
+        ins += [state["h"], state["conv"]]
+        in_pl += [rows, rows]
+    fn = local_map(core, out_placements=(run, by_row, run, rows),
+                   in_placements=in_pl,
+                   in_grad_placements=[sharding.summed_where_split(pl, run)
+                                       for pl in in_pl],
+                   device_mesh=mesh, redistribute_inputs=True)
+    y, h_ch, new_x, new_bc = fn(*ins)
+    out = sharding.constrain(_gated_out(p, y, z, dt), ("batch", None, None))
+    # the new state, channels whole: h (B, d_inner, N) -> (B, H, N, P)
+    h_last = sharding._moved(h_ch, rows).reshape(x.shape[0], H, P, N)
+    h_last = h_last.transpose(2, 3)
+    new_conv = torch.cat([sharding._moved(new_x, rows), new_bc], dim=-1)
+    if state is None:
+        return out, {"h": h_last, "conv": new_conv}
+    return out, {"h": sharding._moved(h_last, state["h"].placements),
+                 "conv": sharding._moved(new_conv, state["conv"].placements)}
 
 
 def init_ssm_state(cfg, batch: int, device=None):

@@ -20,7 +20,9 @@ by the refusal tests instead.
 The runners are ``tests/test_torch_sharded.py``'s: the reference in
 subprocesses of the test file with 4 host devices (``python
 tests/test_torch_sharded_families_<pair>.py
-reference-init|reference-ckpt|reference N|reference-reads DIR MODELS``),
+reference-init|reference-ckpt|reference N|reference-reads DIR MODELS``,
+and ``reference-layout DIR MODEL DxM MODE ROWS OVERRIDES`` for the layout
+checks),
 the port in gloo ranks (a group of 4, then one of 2) joined through a
 file store, every process under a deadline.  The
 reference lays parameters out by ``shardings_for(..., like=params_abs)``
@@ -84,6 +86,7 @@ HELD_MESH = (4, 1)  # one layer of the hybrid's group stack per rank
 HEADS = {"n_layers": 5, "n_heads": 10, "n_kv_heads": 1, "d_head": 16}
 HEADS_MESH = (1, 4)
 DEADLINE_S = 900  # every subprocess and group of ranks
+DECODES = 2  # decode steps after the prefill in the layout checks
 
 
 def ckpt_mode(model: str) -> str:
@@ -164,7 +167,7 @@ def _cache_len(cfg) -> int:
 # the reference, in subprocesses with 4 host devices
 # --------------------------------------------------------------------------
 
-def _jax_setup(model: str):
+def _jax_setup(model: str, **kw):
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
                                " --xla_force_host_platform_device_count=4")
     import jax
@@ -173,7 +176,8 @@ def _jax_setup(model: str):
     from repro.training.step import _abstract_init
 
     arch, over = MODELS[model]
-    cfg = get_config(arch, smoke=True).scaled(dtype="float32", **over)
+    cfg = get_config(arch, smoke=True).scaled(dtype="float32",
+                                              **{**over, **kw})
     params_abs, specs = _abstract_init(cfg, jax.random.PRNGKey(0))
     return jax, cfg, OptConfig(**OPT), params_abs, specs
 
@@ -366,6 +370,45 @@ def reference_run(out: Path, n: int, models) -> None:
                 (out / f"ref_{t}_shapes.json").write_text(json.dumps(
                     {"params": shapes,
                      "cache": _jax_cache_shapes(jax, cache)}))
+
+
+def reference_layout(out: Path, model: str, shape, mode: str, rows: int,
+                     over: dict) -> None:
+    """The reference's ``_layout_run`` of ``model`` (its smoke config with
+    ``over``) from the port's weights in ``layout_init.npz``, over
+    ``shape`` in ``mode``: the last logits of ``rows`` prompts prefilled
+    and decoded ``DECODES`` steps, then one train step's loss and grad
+    norm, as ``ref_layout.npz``."""
+    import jax.numpy as jnp
+    from repro.data import pipeline
+    from repro.models import lm
+    from repro.training.step import make_train_step
+
+    jax, cfg, oc, params_abs, specs = _jax_setup(model, **over)
+    host = jax.tree.unflatten(jax.tree.structure(params_abs),
+                              _leaves(out / "layout_init.npz"))
+    mesh = _jax_mesh(jax, shape)
+    p, o, psh, _, _ = _jax_state(jax, oc, params_abs, specs, mesh, mode,
+                                 host)
+    batch = {k: jnp.asarray(v[:rows], jnp.int32 if k == "tokens" else
+                            jnp.float32)
+             for k, v in _prompts(cfg).items()}
+    cache_abs = jax.eval_shape(
+        lambda: lm.init_cache(cfg, rows, _cache_len(cfg)))
+    prefill, decode = _jax_serve_steps(jax, cfg, mesh, psh, cache_abs, batch,
+                                       mode)
+    last, cache = prefill(p, batch, lm.init_cache(cfg, rows, _cache_len(cfg)))
+    lasts = [np.asarray(last)]
+    for _ in range(DECODES):
+        toks = np.argmax(lasts[-1], -1)[:, None].astype(np.int32)
+        logits, cache = decode(p, toks, cache)
+        lasts.append(np.asarray(logits))
+    step, _, _ = make_train_step(cfg, oc, mesh, specs, mode=mode,
+                                 donate=False, params_abs=params_abs)
+    _, _, met = step(p, o, next(_data(cfg, pipeline)))
+    np.savez(out / "ref_layout.npz", logits=np.stack(lasts),
+             loss=np.asarray([float(met["loss"])]),
+             grad_norm=np.asarray([float(met["grad_norm"])]))
 
 
 def reference_reads(out: Path, models) -> None:
@@ -694,6 +737,107 @@ def _ranks(world: int, out: Path, models):
                                start_method="spawn")
 
 
+def serve_rows(cfg, params, mesh, mode: str, rows: int,
+               steps: int = DECODES):
+    """``rows`` prompts (the first of ``_prompts``) prefilled and decoded
+    greedily for ``steps`` tokens: the last logits of each, as numpy."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import make_serve_steps, place_cache
+
+    batch = {k: torch.from_numpy(v[:rows]) for k, v in _prompts(cfg).items()}
+    prefill, decode = make_serve_steps(cfg, mesh, mode)
+    cache = lm.init_cache(cfg, rows, _cache_len(cfg), "cpu")
+    if mesh is not None:
+        cache = place_cache(cfg, cache, mesh)
+    last, cache = prefill(params, batch, cache)
+    lasts = [last]
+    for _ in range(steps):
+        last, cache = decode(params, torch.argmax(last, -1)[:, None], cache)
+        lasts.append(last)
+    return np.stack([_full(x) for x in lasts])
+
+
+def _layout_run(cfg, host, mesh, mode: str, rows: int) -> dict:
+    """``serve_rows`` and one train step (loss, grad norm) of ``cfg`` from
+    the weights ``host``, over ``mesh`` in ``mode`` (None: one device)."""
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import (OptConfig, init_opt_state,
+                                         opt_state_specs)
+
+    oc, specs = OptConfig(**OPT), lm.param_specs(cfg)
+    params, opt = lm.tree_map(torch.clone, host), init_opt_state(oc, host)
+    if mesh is not None:
+        opt = distribute(opt, opt_state_specs(oc, specs), mesh, mode)
+        params = distribute(params, specs, mesh, mode)
+    logits = serve_rows(cfg, params, mesh, mode, rows)
+    _, _, losses, gnorms = train(cfg, params, opt, mesh, mode, steps=1)
+    return {"logits": logits, "loss": np.asarray(losses),
+            "grad_norm": np.asarray(gnorms)}
+
+
+def layout_rank(rank: int, world: int, out: str, model: str, shape,
+                mode: str, rows: int, over: dict) -> None:
+    """One gloo rank of ``_layout_run`` over ``shape`` (data, model) from
+    seeded weights; rank 0 writes the results."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import lm
+
+    torch.set_num_threads(1)
+    out = Path(out)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{out}/store_layout", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        cfg = cfg_of(model, **over)
+        mesh = device_mesh(Mesh(("data", "model"), tuple(shape)), "cpu")
+        host = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        got = _layout_run(cfg, host, mesh, mode, rows)
+        if rank == 0:
+            np.savez(out / "layout.npz", **got)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
+                 rows: int, **over) -> None:
+    """``model`` (its smoke config with ``over``) from ``lm.init``'s
+    weights, served for ``rows`` prompts and trained one step over
+    ``shape`` in ``mode`` on 4 gloo ranks: the last logits, the loss and
+    the grad norm equal the reference's on the same mesh (a subprocess of
+    ``script`` with 4 host devices, from the same weights) and one
+    device's, within ``TOL``."""
+    import torch.multiprocessing as mp
+    from repro_torch.models import lm
+
+    cfg = cfg_of(model, **over)
+    host = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    np.savez(tmp / "layout_init.npz",
+             **{f"leaf_{i}": x.numpy()
+                for i, x in enumerate(lm.tree_leaves(host))})
+    deadline = time.monotonic() + DEADLINE_S
+    ref = _popen(script, "reference-layout", tmp, model,
+                 f"{shape[0]}x{shape[1]}", mode, rows, json.dumps(over))
+    try:
+        _join(mp.start_processes(layout_rank, args=(4, str(tmp), model,
+                                                    shape, mode, rows, over),
+                                 nprocs=4, join=False, start_method="spawn"),
+              deadline)
+        one = _layout_run(cfg, host, None, mode, rows)
+        _finish(ref, deadline)
+    finally:
+        if ref.poll() is None:
+            os.killpg(ref.pid, signal.SIGKILL)
+    got = _load(tmp / "layout.npz")
+    for name, want in (("reference", _load(tmp / "ref_layout.npz")),
+                       ("one device", one)):
+        for key in one:
+            np.testing.assert_allclose(got[key], want[key], rtol=TOL,
+                                       atol=TOL, err_msg=f"{key}, {name}")
+
+
 def run_all(script: Path, out: Path, models) -> Path:
     """Run the reference (subprocesses of ``script``) and the port (gloo
     ranks) for ``models``; the directory of their results."""
@@ -759,6 +903,9 @@ def main(argv) -> None:
         reference_run(out, int(argv[3]), argv[4:])
     elif cmd == "reference-reads":
         reference_reads(out, argv[3:])
+    elif cmd == "reference-layout":
+        reference_layout(out, argv[3], tuple(map(int, argv[4].split("x"))),
+                         argv[5], int(argv[6]), json.loads(argv[7]))
     else:
         raise SystemExit(f"unknown command {cmd!r}")
 

@@ -177,6 +177,24 @@ def test_unevenly_split_heads_train_and_serve_as_on_one_device(tmp_path):
     assert rep["strided"] == []
 
 
+def test_batch_of_one_serves_as_on_one_device(tmp_path):
+    """One prompt over (2, 2) in ``tp_fsdp``: the batch leaves 'data' free,
+    so the tied head and the embedding keep their 'embed' split over
+    'data' (the product's partial sums reduced), the RG-LRU runs on each
+    rank's channels and its ring's window through the prefill; served and
+    trained as the reference on the same mesh and as one device."""
+    sf.check_layout(HERE, tmp_path, "hybrid", (2, 2), "tp_fsdp", 1)
+
+
+def test_heads_split_by_kv_group_as_on_one_device(tmp_path):
+    """6 q heads and 2 kv heads over (1, 4) in ``tp_fsdp``: neither count
+    divides 'model', so each kv head goes to 2 ranks with its 3 q heads
+    (yi-34b's 56 and 8 over 16) and the heads' shares are summed; served
+    and trained as the reference on the same mesh and as one device."""
+    sf.check_layout(HERE, tmp_path, "vlm", (1, 4), "tp_fsdp", sf.BATCH,
+                    n_heads=6, n_kv_heads=2)
+
+
 def test_launchers_run_the_vlm_under_torch_distributed_run(tmp_path):
     sf.check_launchers(tmp_path, "llava-next-34b", "tp_fsdp", 1, "tp", 2)
 

@@ -116,6 +116,26 @@ def test_tp_fsdp_judges_each_stack_of_the_audio(shape, stack):
                   "tp_fsdp", mesh)
 
 
+def test_batch_of_one_serves_as_on_one_device(tmp_path):
+    """One prompt over (2, 2) in ``tp_fsdp``: the batch leaves 'data' free,
+    so the tied head and the embedding keep their 'embed' split over
+    'data' (the product's partial sums reduced) and the SSD runs on each
+    rank's channels of ``d_inner``; the prefill's and two decode steps'
+    last logits, and a train step, equal the reference's on the same mesh
+    and one device's."""
+    sf.check_layout(HERE, tmp_path, "ssm", (2, 2), "tp_fsdp", 1)
+
+
+def test_unsplit_vocabulary_runs_as_on_one_device(tmp_path):
+    """A vocabulary of 511 over (2, 2) in ``tp_fsdp``: 'model' does not
+    divide it, so the table stays whole along it and split along 'embed'
+    over 'data', and the head's rows take 'model' while each rank
+    contracts its slice of 'embed'; served and trained as the reference on
+    the same mesh and as one device."""
+    sf.check_layout(HERE, tmp_path, "ssm", (2, 2), "tp_fsdp", sf.BATCH,
+                    vocab=511)
+
+
 def test_launchers_run_the_ssm_under_torch_distributed_run(tmp_path):
     sf.check_launchers(tmp_path, "mamba2-130m", "dp", 2, "tp_fsdp", 1)
 
