@@ -126,13 +126,16 @@ Phases (each prints its own lines; any failure exits nonzero):
      decode_32k on the pod and multipod meshes (tp_fsdp, its 32 layers
      gathered over 'data' and over ('pod', 'data')), mamba2-130m's
      long_500k and recurrentgemma-2b's prefill_32k on the pod mesh
-     (tp_fsdp, the recurrent blocks on each rank's channels), each
-     through ``roofline.analyze_cell``: no error, 256 or 512 devices,
-     collective bytes above 0, the collective term beside compute and
-     memory; the last two held against the reference's own compile
+     (tp_fsdp, the recurrent blocks on each rank's channels), and
+     recurrentgemma-2b's decode_32k, long_500k and train_4k on the pod
+     mesh (its 10 q heads over 'model' 16: each rank attends with its
+     slots of the ring, or its rows of every q chunk), each through
+     ``roofline.analyze_cell``: no error, 256 or 512 devices, collective
+     bytes above 0, the collective term beside compute and memory; the
+     last five but long_500k held against the reference's own compile
      (``MESH_REFERENCE``: FLOPs within 0.8-1.25x, peak at most 2.0x)
      (timed as its own phase, "8e", the wait that is left, and by its
-     children's wall from their start).  The eight tracing children trace
+     children's wall from their start).  The eleven tracing children trace
      on the host, one process a cell, single-threaded: (b)'s start before
      phase 6 (prefill_32k alone takes minutes) and (e)'s before phase 7;
      all of them have ended before phase 7b (the wait is timed as "wait"),
@@ -141,11 +144,13 @@ Phases (each prints its own lines; any failure exits nonzero):
      {"mesh_dryrun": {...}};
   9. the sharded path (``repro_torch.launch.train``/``serve`` over a
      ``torch.distributed`` mesh, ``distributed.sharding``'s DTensor
-     layouts; torch ops, no kernel of this repo): children of
+     layouts; torch ops, no kernel of this repo): one child of
      ``torch.distributed.run --standalone`` with NCCL over every card
-     train phase 6's bf16 8 x 1024 for 3 steps in ``--mode dp`` (the
-     reference's mode for this arch), ``tp`` and ``tp_fsdp``, and serve
-     phase 5's 8 x 1024 + 32 in ``tp`` and ``tp_fsdp``; the losses and
+     (``--qwen``) runs ``launch.train.main`` on phase 6's bf16 8 x 1024
+     for 3 steps in ``--mode dp`` (the reference's mode for this arch),
+     ``tp`` and ``tp_fsdp``, and ``launch.serve.main`` on phase 5's 8 x
+     1024 + 32 in ``tp`` and ``tp_fsdp``, one after another in the
+     process group it joins once; the losses and
      grad norms are held against phase 6's first steps at the bf16
      tolerance, the greedy tokens against phase 5's (equal).  On one card
      the mesh is 1x1 and ``--model-parallel 2`` must fail; with two or
@@ -179,7 +184,9 @@ Phases (each prints its own lines; any failure exits nonzero):
   11. the last line: {"ok": true, "device": {...}}.
 
 Needs torch with CUDA, nvcc and one card; it fails without them.
-``python3 chip_smoke.py --sharded`` runs phase 9's qwen runs alone (over
+``python3 chip_smoke.py --sharded [PART...]`` runs, of its parts
+(``SHARDED_PARTS``: qwen minitron moe hybrid dp vlm kv_group dryrun; all
+by default), phase 9's qwen runs alone (over
 every card the machine shows), after one-device runs of ``launch.train``
 and ``launch.serve`` at phase 6's and phase 5's shapes to hold them
 against, then the runs that need 4 cards (``phase_wide``): minitron-8b at
@@ -197,7 +204,14 @@ token may part only where the top-1 minus top-2 logit gap is within
 twice the layouts' max |diff| of the first logits); one JSON line
 {"sharded_wide_families": {...}}.  To run only that part: ``python3 -c
 'import chip_smoke as c, sys; c.phase_wide_families(); sys.exit(1 if
-c.FAILURES else 0)'``.  Last, ``phase_mesh_dryrun_vs_card``: rank 0's
+c.FAILURES else 0)'``.  Then ``phase_kv_group``: llava-next-34b at full
+width and 2 of its 60 layers with its heads cut to 14 q and 2 kv heads
+(groups of 7, as its 56 and 8; no config has 2 kv heads at full width),
+so that over 'model' 4 each kv head goes to 2 ranks, trained 3 steps and
+served in ``tp_fsdp`` on (1, 4) against the same config on one card
+(losses and grad norms at the bf16 tolerance, first tokens by the bf16
+gap rule); one JSON line {"sharded_kv_group": {...}}.  Last,
+``phase_mesh_dryrun_vs_card``: rank 0's
 fake trace (the dry-run over a fake group of 4) of phase 9's qwen train
 step in tp_fsdp on (2, 2) and tp on (1, 4), held against the same
 counters over the real step on rank 0 of 4 cards (FLOPs and each kind's
@@ -279,8 +293,8 @@ from repro_torch.serving.engine import (make_serve_steps,  # noqa: E402
                                         place_cache)
 from repro_torch.training.step import (init, init_sharded,  # noqa: E402
                                        make_train_step)
-from repro_torch.launch.mesh import (Mesh, is_main, per_rank,  # noqa
-                                     run_launched)
+from repro_torch.launch.mesh import (Mesh, init_distributed,  # noqa
+                                     is_main, per_rank, run_launched)
 from repro_torch.models.weights import cast_for_compute  # noqa: E402
 from repro_torch.distributed.sharding import distribute  # noqa: E402
 
@@ -1808,13 +1822,19 @@ E2E_STEPS = 20  # train_e2e's 300 steps, cut for time
 # ('pod', 'data') 32; the recurrent blocks over a model-split mesh:
 # mamba2-130m's long_500k (one row: 'embed' contracted over 'data') and
 # recurrentgemma-2b's prefill_32k (the RG-LRU on each rank's channels),
-# both tp_fsdp on pod (phi3.5-moe's prefill_32k is left out: its trace
-# alone takes minutes)
+# both tp_fsdp on pod; and recurrentgemma-2b's decode_32k, long_500k and
+# train_4k on pod, whose 10 q heads cannot go to 'model' 16: a decode step
+# attends with each rank's slots of the ring, a train step with each
+# rank's rows of every q chunk (phi3.5-moe's prefill_32k and the 34B
+# train cells are left out: their traces alone take minutes)
 MESH_CELLS = (("qwen1.5-0.5b", "train_4k", "pod"),
               ("minitron-8b", "decode_32k", "pod"),
               ("minitron-8b", "decode_32k", "multipod"),
               ("mamba2-130m", "long_500k", "pod"),
-              ("recurrentgemma-2b", "prefill_32k", "pod"))
+              ("recurrentgemma-2b", "prefill_32k", "pod"),
+              ("recurrentgemma-2b", "decode_32k", "pod"),
+              ("recurrentgemma-2b", "long_500k", "pod"),
+              ("recurrentgemma-2b", "train_4k", "pod"))
 MESH_DRYRUN_TIMEOUT_S = 300
 # the reference's rank 0 in the cells held against it: (hlo.per_device_
 # flops, memory_per_device.peak_live_bytes) of its own compile on a host
@@ -1826,7 +1846,17 @@ MESH_REFERENCE = {
     ("mamba2-130m", "long_500k", "pod"): (5627136.0, 16909736),
     ("recurrentgemma-2b", "prefill_32k", "pod"): (33738478059520.0,
                                                   7168983388),
+    ("recurrentgemma-2b", "decode_32k", "pod"): (2944061440.0, 432130420),
+    ("recurrentgemma-2b", "train_4k", "pod"): (90177536000000.0,
+                                               25713649428),
 }
+# recurrentgemma-2b's long_500k on pod is traced and not held: with its
+# keys split the port's rank reads 0.58x the reference's 102586880 FLOPs
+# (peak 156925400 B), below MESH_FLOPS_BOUNDS, because the reference's
+# rank does more for a batch of one (its MLP's products keep d_model
+# whole where the port contracts 'embed' over 'data', and it attends 5
+# heads over 4 chunks of its 128 slots where the port attends 10 over
+# its 128 once)
 MESH_FLOPS_BOUNDS = (0.8, 1.25)
 MESH_PEAK_BOUND = 2.0
 
@@ -2179,6 +2209,7 @@ SHARDED_TRAIN_STEPS = 3
 SHARDED_MODES = ("dp", "tp", "tp_fsdp")
 SHARDED_SERVE_MODES = ("tp", "tp_fsdp")
 SHARDED_TIMEOUT_S = 300  # each child launch
+QWEN_TIMEOUT_S = 600  # the one child of phase 9's qwen runs
 # the sharded run against the one-device run on the same card, in bf16:
 # the losses within phase 6's bf16 tolerance, the greedy tokens equal (the
 # first of each sequence where 'model' > 1; see sharded_serve)
@@ -2273,17 +2304,20 @@ def held_serve(label: str, rep: dict, base: dict, held: str,
     got, want = torch.tensor(rep["tokens"]), torch.tensor(base["tokens"])
     same = torch.equal(got, want)
     share = (got == want).float().mean().item()
-    ok = same if all_tokens else bool((got[:, 0] == want[:, 0]).all())
+    first = bool((got[:, 0] == want[:, 0]).all())
+    ok = same if all_tokens else first
     check(f"{label}: greedy tokens against {held} "
           f"({'all' if all_tokens else 'the first of each'} equal)", ok,
-          f"{share:.4f} of tokens equal; prefill {rep['prefill_ms']:.3f} "
+          f"{share:.4f} of tokens equal, the first of each "
+          f"{'equal' if first else 'not all equal'}; prefill "
+          f"{rep['prefill_ms']:.3f} "
           f"ms ({held} {base['prefill_ms']:.3f}), decode "
           f"{rep['decode_ms_per_step']:.3f} ms a step ({held} "
           f"{base['decode_ms_per_step']:.3f}); peak per rank "
           f"{gib(rep['peak_bytes_per_rank'])} GiB")
     return {"mesh": rep["mesh"], "mode": rep["mode"], "held_against": held,
             "tokens_equal": same, "tokens_equal_share": share,
-            "prefill_ms": rep["prefill_ms"],
+            "first_tokens_equal": first, "prefill_ms": rep["prefill_ms"],
             "decode_ms_per_step": rep["decode_ms_per_step"],
             "base_prefill_ms": base["prefill_ms"],
             "base_decode_ms_per_step": base["decode_ms_per_step"],
@@ -2309,38 +2343,89 @@ def run_child(label: str, target: list, nproc: int, args: list, tmp: str,
     return rep
 
 
-def sharded_train(tmp: str, nproc: int, mp: int, mode: str, arch: str = QWEN,
-                  timeout: int = SHARDED_TIMEOUT_S):
-    """``launch.train`` bf16 8 x 1024, 3 steps, over ``nproc`` ranks with
-    'model' = ``mp``: its report, or None after a failed check."""
+def train_run(tmp: str, nproc: int, mp: int, mode: str, arch: str) -> tuple:
+    """(label, ``launch.train``'s arguments, report path) of a sharded
+    train run: bf16 8 x 1024, 3 steps, over ``nproc`` ranks with 'model'
+    = ``mp``."""
     B, S = TRAIN[:2]
     path = os.path.join(tmp, f"train_{arch}_{nproc}_{mp}_{mode}.json")
-    return run_child(
-        f"{arch} train {B}x{S}, {nproc} rank(s), model={mp}, --mode {mode}",
-        ["-m", "repro_torch.launch.train"], nproc, [
-            "--arch", arch, "--global-batch", str(B), "--seq-len", str(S),
-            "--steps", str(SHARDED_TRAIN_STEPS), "--mode", mode,
-            "--model-parallel", str(mp), "--log-every", "1", "--json", path],
-        tmp, path, timeout)
+    return (f"{arch} train {B}x{S}, {nproc} rank(s), model={mp}, --mode "
+            f"{mode}", [
+                "--arch", arch, "--global-batch", str(B), "--seq-len",
+                str(S), "--steps", str(SHARDED_TRAIN_STEPS), "--mode", mode,
+                "--model-parallel", str(mp), "--log-every", "1", "--json",
+                path], path)
+
+
+def serve_run(tmp: str, nproc: int, mp: int, mode: str, arch: str) -> tuple:
+    """(label, ``launch.serve``'s arguments, report path) of a sharded
+    serve: bf16 8 x 1024 + 32 over ``nproc`` ranks with 'model' =
+    ``mp``."""
+    B, P, G = SERVE
+    path = os.path.join(tmp, f"serve_{arch}_{nproc}_{mp}_{mode}.json")
+    return (f"{arch} serve {B}x{P} + {G}, {nproc} rank(s), model={mp}, "
+            f"--mode {mode}", [
+                "--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+                "--gen", str(G), "--mode", mode, "--model-parallel", str(mp),
+                "--json", path], path)
+
+
+def sharded_train(tmp: str, nproc: int, mp: int, mode: str, arch: str = QWEN,
+                  timeout: int = SHARDED_TIMEOUT_S):
+    """``launch.train`` (``train_run``) in a child launch of its own: its
+    report, or None after a failed check."""
+    label, args, path = train_run(tmp, nproc, mp, mode, arch)
+    return run_child(label, ["-m", "repro_torch.launch.train"], nproc, args,
+                     tmp, path, timeout)
 
 
 def sharded_serve(tmp: str, nproc: int, mp: int, mode: str, arch: str = QWEN,
                   timeout: int = SHARDED_TIMEOUT_S):
-    """``launch.serve`` bf16 8 x 1024 + 32 over ``nproc`` ranks with
-    'model' = ``mp``: its report, or None after a failed check."""
-    B, P, G = SERVE
-    path = os.path.join(tmp, f"serve_{arch}_{nproc}_{mp}_{mode}.json")
-    return run_child(
-        f"{arch} serve {B}x{P} + {G}, {nproc} rank(s), model={mp}, --mode "
-        f"{mode}", ["-m", "repro_torch.launch.serve"], nproc, [
-            "--arch", arch, "--batch", str(B), "--prompt-len", str(P),
-            "--gen", str(G), "--mode", mode, "--model-parallel", str(mp),
-            "--json", path], tmp, path, timeout)
+    """``launch.serve`` (``serve_run``) in a child launch of its own: its
+    report, or None after a failed check."""
+    label, args, path = serve_run(tmp, nproc, mp, mode, arch)
+    return run_child(label, ["-m", "repro_torch.launch.serve"], nproc, args,
+                     tmp, path, timeout)
+
+
+def qwen_runs(tmp: str, nproc: int, meshes) -> list:
+    """Phase 9's qwen runs for each 'model' of ``meshes``: (kind, mode,
+    'model', label, the launcher's arguments, report path), ``launch.train``
+    in ``SHARDED_MODES``, then ``launch.serve`` in
+    ``SHARDED_SERVE_MODES``."""
+    runs = []
+    for mp in meshes:
+        runs += [("train", mode, mp, *train_run(tmp, nproc, mp, mode, QWEN))
+                 for mode in SHARDED_MODES]
+        runs += [("serve", mode, mp, *serve_run(tmp, nproc, mp, mode, QWEN))
+                 for mode in SHARDED_SERVE_MODES]
+    return runs
+
+
+def qwen_child(tmp: str, meshes) -> None:
+    """``--qwen DIR MP...``, in the ranks of one ``torch.distributed.run``
+    launch: every run of ``qwen_runs``, each the launcher's own ``main``
+    (``launch.train.main``, ``launch.serve.main``) with its arguments, one
+    after another in the process group this child joins once (a launcher
+    run in a group already up leaves it up).  One launch pays the start,
+    the imports, the card's context and the group's set-up once, where a
+    launch a run paid them for each.  Each run writes its report into
+    DIR."""
+    dev = init_distributed("cuda")
+    try:
+        for kind, *_, args, _ in qwen_runs(tmp, dist.get_world_size(),
+                                           meshes):
+            (train if kind == "train" else serve).main(args)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
 
 
 def phase_sharded(served: dict, trained: dict) -> dict:
     """Phase 9's qwen runs: the sharded path under torch.distributed.run
-    and NCCL at full width, over every card, against phases 5 and 6."""
+    and NCCL at full width, over every card, in one child (``--qwen``),
+    against phases 5 and 6."""
     print("== phase 9: the sharded path (torch.distributed.run, NCCL), "
           f"{QWEN} at full width")
     t0 = time.perf_counter()
@@ -2358,20 +2443,29 @@ def phase_sharded(served: dict, trained: dict) -> dict:
             check("--model-parallel 2 over 1 card refuses",
                   rc != 0 and "do not split into model=2" in out,
                   f"exit {rc}")
-        for mp in meshes:
-            for mode in SHARDED_MODES:
-                r = sharded_train(tmp, cards, mp, mode)
-                if r is not None:
-                    rep["train"].append(held_train(
-                        f"sharded train, {cards} rank(s), mesh {r['mesh']},"
-                        f" --mode {mode}", r, trained, "the one-device run"))
-            for mode in SHARDED_SERVE_MODES:
-                r = sharded_serve(tmp, cards, mp, mode)
-                if r is not None:
-                    rep["serve"].append(held_serve(
-                        f"sharded serve, {cards} rank(s), mesh {r['mesh']},"
-                        f" --mode {mode}", r, served, "the one-device run",
-                        all_tokens=mp == 1))
+        rc, out, secs = launch([os.path.join(ROOT, "chip_smoke.py"),
+                                "--qwen", tmp], cards, list(map(str, meshes)),
+                               tmp, QWEN_TIMEOUT_S)
+        rep["child_s"] = secs
+        print(f"  {QWEN}'s runs (one child, {cards} rank(s)): child "
+              f"{secs:.1f} s")
+        for kind, mode, mp, label, _, path in qwen_runs(tmp, cards, meshes):
+            if not os.path.exists(path):
+                check(label, False, failure(rc, out))
+                break
+            with open(path) as f:
+                r = json.load(f)
+            if kind == "train":
+                rep["train"].append(held_train(
+                    f"sharded train, {cards} rank(s), mesh {r['mesh']}, "
+                    f"--mode {mode}", r, trained, "the one-device run"))
+            else:
+                rep["serve"].append(held_serve(
+                    f"sharded serve, {cards} rank(s), mesh {r['mesh']}, "
+                    f"--mode {mode}", r, served, "the one-device run",
+                    all_tokens=mp == 1))
+        if rc != 0:
+            check(f"{QWEN}'s runs (one child)", False, failure(rc, out))
     rep["phase_s"] = time.perf_counter() - t0
     print(f"  phase 9 ({QWEN}) took {rep['phase_s']:.1f} s")
     print(json.dumps({"sharded": rep}))
@@ -2581,39 +2675,57 @@ def family_batch(cfg, B: int, P: int, dev) -> dict:
     return batch
 
 
-def family_run(fam: str, dev, dmesh, mesh_shape=None, start=None):
-    """One family's run: the weights drawn by ``init_sharded`` in the
+def family_run(spec: tuple, dev, dmesh, mesh_shape=None, start=None,
+               keep: bool = True, first=None):
+    """One family's run (``spec``: a ``FAMILIES`` entry, perhaps with the
+    config's overrides last): the weights drawn by ``init_sharded`` in the
     train mode over ``dmesh``, or, one device (``dmesh`` None), copied
     from ``start``: the mesh run's initial weights, which on the 1x1 mesh
-    are whole (``init``'s, bit for bit), so the model is drawn once; then
-    a greedy serve in the serve mode and 3 train steps in the train mode.
-    Returns (times, losses, tokens and peak memory; over a mesh, a copy
-    of the initial weights in host memory, off the card's peak)."""
-    arch, layers, tmode, smode, (SB, P, G) = FAMILIES[fam]
-    cfg = get_config(arch)
+    are whole (``init``'s, bit for bit), so the model is drawn once; or,
+    without ``start``, drawn by ``init`` (the same weights
+    ``init_sharded`` places); then a greedy serve in the serve mode and 3
+    train steps in the train mode.  With ``first`` (a path), rank 0 saves
+    the serve's first logits there as ``.npy``.  Returns (times, losses,
+    tokens and peak memory; over a mesh and with ``keep``, a copy of the
+    initial weights in host memory, off the card's peak)."""
+    arch, layers, tmode, smode, (SB, P, G), *over = spec
+    cfg = get_config(arch).scaled(**(over[0] if over else {}))
     if layers:
         cfg = cfg.scaled(n_layers=layers)
     oc = OptConfig(decay_steps=10)  # launch.train's, for a short run
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     kept = None
-    if dmesh is None:
+    if dmesh is None and start is None:
+        params, opt = init(cfg, oc, dev)
+    elif dmesh is None:
         params = lm.tree_map(lambda h: h.to(dev), start)
         opt = init_opt_state(oc, params)
     else:
         params, _, opt = init_sharded(cfg, oc, dmesh, tmode, device=dev)
-        kept = lm.tree_map(lambda p: p.full_tensor().detach().to(
-            "cpu", copy=True), params)
+        if keep:
+            kept = lm.tree_map(lambda p: p.full_tensor().detach().to(
+                "cpu", copy=True), params)
     torch.cuda.synchronize(dev)
     draw_s = time.perf_counter() - t0
     # on the 1x1 mesh every mode places every leaf alike (Replicate), so
     # the weights drawn in the train mode serve in the serve mode as drawn
-    tokens, stats = serve.generate(cfg, cast_for_compute(cfg, params),
-                                   family_batch(cfg, SB, P, dev), G, dmesh,
-                                   smode)
+    served = cast_for_compute(cfg, params)
+    batch = family_batch(cfg, SB, P, dev)
+    if first is not None:
+        prefill_step, _ = make_serve_steps(cfg, dmesh, smode)
+        cache = lm.init_cache(cfg, SB, P + G + batch.get(
+            "embeds", torch.empty(0, 0)).shape[1], dev)
+        logits, _ = prefill_step(served, batch, cache if dmesh is None
+                                 else place_cache(cfg, cache, dmesh))
+        if is_main():
+            np.save(first, logits.float().cpu().numpy())
+        del cache, logits
+    tokens, stats = serve.generate(cfg, served, batch, G, dmesh, smode)
+    del served
     serve_peak = torch.cuda.max_memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    B, S = TRAIN[0], TRAIN[1] - (VLM_PATCHES if fam == "vlm" else 0)
+    B, S = TRAIN[0], TRAIN[1] - (VLM_PATCHES if cfg.family == "vlm" else 0)
     step = make_train_step(cfg, oc, mesh=dmesh, mode=tmode)
     data = SyntheticTokens(DataConfig(
         global_batch=B, seq_len=S, vocab=cfg.vocab, frontend=cfg.frontend,
@@ -2660,8 +2772,8 @@ def families_child(path: str) -> None:
         out = {}
         for fam in FAMILIES:
             t0 = time.perf_counter()
-            on_mesh, start = family_run(fam, d, dmesh, mesh.shape)
-            one, _ = family_run(fam, d, None, start=start)
+            on_mesh, start = family_run(FAMILIES[fam], d, dmesh, mesh.shape)
+            one, _ = family_run(FAMILIES[fam], d, None, start=start)
             del start
             torch.cuda.empty_cache()
             out[fam] = {"one": one, "mesh": on_mesh,
@@ -2723,10 +2835,10 @@ def phase_families() -> dict:
     return rep
 
 
-def phase_wide() -> dict:
+def phase_wide(parts=("minitron", "moe")) -> dict:
     """``--sharded``'s runs that need 4 cards: minitron-8b trained and
     served in tp_fsdp on (2, 2) against tp on (1, 4), and phi3.5-moe at 4
-    layers in tp_ep on (2, 2) against tp on (1, 4)."""
+    layers in tp_ep on (2, 2) against tp on (1, 4); those of ``parts``."""
     cards = torch.cuda.device_count()
     print(f"== --sharded: {WIDE_ARCH} at full width and {MOE_ARCH} at "
           f"{WIDE_MOE_LAYERS} layers over {WIDE_CARDS} cards")
@@ -2739,7 +2851,7 @@ def phase_wide() -> dict:
     rep = {"train": [], "serve": []}
     with tempfile.TemporaryDirectory(prefix="tcm-wide-") as tmp:
         base = None
-        for mode, mp in WIDE_RUNS:
+        for mode, mp in WIDE_RUNS if "minitron" in parts else ():
             r = sharded_train(tmp, WIDE_CARDS, mp, mode, WIDE_ARCH,
                               WIDE_TIMEOUT_S)
             if r is None:
@@ -2755,7 +2867,7 @@ def phase_wide() -> dict:
                 f"{WIDE_ARCH} train, mesh {r['mesh']}, --mode {mode}", r,
                 base, held))
         base = None
-        for mode, mp in WIDE_RUNS:
+        for mode, mp in WIDE_RUNS if "minitron" in parts else ():
             r = sharded_serve(tmp, WIDE_CARDS, mp, mode, WIDE_ARCH,
                               WIDE_TIMEOUT_S)
             if r is None:
@@ -2767,8 +2879,9 @@ def phase_wide() -> dict:
             rep["serve"].append(held_serve(
                 f"{WIDE_ARCH} serve, mesh {r['mesh']}, --mode {mode}", r,
                 base, held, False))
-        rep["moe"] = moe_runs(tmp, WIDE_MOE_LAYERS, WIDE_MOE_RUNS,
-                              WIDE_CARDS)
+        if "moe" in parts:
+            rep["moe"] = moe_runs(tmp, WIDE_MOE_LAYERS, WIDE_MOE_RUNS,
+                                  WIDE_CARDS)
     rep["phase_s"] = time.perf_counter() - t0
     print(f"  the wide runs took {rep['phase_s']:.1f} s")
     print(json.dumps({"sharded_wide": rep}))
@@ -2916,9 +3029,10 @@ def vlm_layouts(tmp: str) -> dict:
     return out
 
 
-def phase_wide_families() -> dict:
+def phase_wide_families(parts=("hybrid", "dp", "vlm")) -> dict:
     """``--sharded``'s runs of the ssm, hybrid, vlm and audio families on
-    ``WIDE_CARDS`` cards, each held against its baseline."""
+    ``WIDE_CARDS`` cards, each held against its baseline; those of
+    ``parts`` (``dp``: the ssm's and the audio's)."""
     cards = torch.cuda.device_count()
     print(f"== --sharded: {WIDE_HYBRID} and {WIDE_VLM} at full width and "
           f"depth, {'/'.join(WIDE_DP)} in dp, over {WIDE_CARDS} cards")
@@ -2932,18 +3046,117 @@ def phase_wide_families() -> dict:
            "dp_train": {}}
     with tempfile.TemporaryDirectory(prefix="tcm-wide-families-") as tmp:
         pair = [(WIDE_CARDS, mode, mp) for mode, mp in WIDE_RUNS]
-        wide_pair(tmp, sharded_train, WIDE_HYBRID, pair, rep["hybrid_train"])
-        wide_pair(tmp, sharded_serve, WIDE_HYBRID, pair, rep["hybrid_serve"])
-        for arch in WIDE_DP:
+        if "hybrid" in parts:
+            wide_pair(tmp, sharded_train, WIDE_HYBRID, pair,
+                      rep["hybrid_train"])
+            wide_pair(tmp, sharded_serve, WIDE_HYBRID, pair,
+                      rep["hybrid_serve"])
+        for arch in WIDE_DP if "dp" in parts else ():
             rep["dp_train"][arch] = []
             wide_pair(tmp, sharded_train, arch,
                       [(1, "dp", 1), (WIDE_CARDS, "dp", 1)],
                       rep["dp_train"][arch])
         # last: each of its ranks draws all ~34.4 G parameters (~280 s)
-        rep["vlm_serve"] = vlm_layouts(tmp)
+        if "vlm" in parts:
+            rep["vlm_serve"] = vlm_layouts(tmp)
     rep["phase_s"] = time.perf_counter() - t0
     print(f"  the wide families took {rep['phase_s']:.1f} s")
     print(json.dumps({"sharded_wide_families": rep}))
+    return rep
+
+
+# ``--sharded``'s kv-group run: llava-next-34b at full width (d_model
+# 7168) and 2 of its 60 layers, with its heads cut to 14 q and 2 kv heads
+# (groups of 7 q heads, as its 56 and 8): no config has 2 kv heads at full
+# width, and over 'model' 4 neither count divides while 4 is twice the kv
+# heads, so each kv head goes to 2 ranks (``sharding.kv_group``) and a
+# train step splits the rows of every q chunk between them.  Trained 3
+# steps and served in tp_fsdp on (1, 4) (``--kvgroup``, one child of 4
+# ranks) against the same config on one card (one child of 1 rank, drawn
+# by ``init``: the weights ``init_sharded`` places), at the bf16
+# tolerances of the other runs: losses and grad norms at
+# ``SHARDED_LOSS_RTOL``, a first token parting only where the top-1 minus
+# top-2 gap of the one-card run's first logits is within twice the two
+# runs' max |diff| (as ``vlm_layouts`` holds bf16).
+KV_GROUP = ("llava-next-34b", 2, "tp_fsdp", "tp_fsdp", (8, 448, 32),
+            {"n_heads": 14, "n_kv_heads": 2})
+KV_GROUP_MP = 4
+
+
+def kv_group_child(path: str) -> None:
+    """``--kvgroup PATH``, in the ranks of a ``torch.distributed.run``
+    launch: ``family_run`` of ``KV_GROUP`` over the (1, ranks) mesh, or
+    on one device when the launch has one rank; rank 0 writes the report
+    to ``path`` and the first logits to ``path.npy``."""
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(dev)
+
+    def body(d, mesh, dmesh):
+        one = dmesh.size() == 1
+        rep, _ = family_run(KV_GROUP, d, None if one else dmesh,
+                            mesh.shape, keep=False, first=f"{path}.npy")
+        if is_main():
+            with open(path, "w") as f:
+                json.dump(rep, f)
+
+    run_launched(int(os.environ.get("WORLD_SIZE", "1")), dev, body)
+
+
+def phase_kv_group() -> dict:
+    """``--sharded``'s kv-group run (``KV_GROUP``): the one-card child,
+    then the (1, 4) child in tp_fsdp, held against it."""
+    arch, layers, *_, over = KV_GROUP
+    label = (f"{arch} at {layers} layers with {over['n_heads']} q and "
+             f"{over['n_kv_heads']} kv heads")
+    print(f"== --sharded: {label}, tp_fsdp on (1, {KV_GROUP_MP}) against one "
+          f"card")
+    cards = torch.cuda.device_count()
+    if cards < KV_GROUP_MP:
+        check(f"{KV_GROUP_MP} cards for the kv-group run", False,
+              f"the machine shows {cards}")
+        return {}
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="tcm-kv-group-") as tmp:
+        for nproc in (1, KV_GROUP_MP):
+            path = os.path.join(tmp, f"kv_group_{nproc}.json")
+            r = run_child(f"{label}, {nproc} rank(s)",
+                          [os.path.join(ROOT, "chip_smoke.py"), "--kvgroup"],
+                          nproc, [path], tmp, path, WIDE_TIMEOUT_S)
+            if r is None:
+                return {"runs": runs}
+            r["first_logits"] = np.load(f"{path}.npy")
+            runs[nproc] = r
+    one, got = runs[1], runs[KV_GROUP_MP]
+    rep = {"train": held_train(f"{label} train, mesh {got['train']['mesh']},"
+                               f" --mode tp_fsdp", got["train"], one["train"],
+                               "one card")}
+    want_t, got_t = (torch.tensor(r["serve"]["tokens"]) for r in (one, got))
+    lb, lo = (torch.from_numpy(r.pop("first_logits")) for r in (one, got))
+    diff = (lb - lo).abs().amax(-1)
+    top2 = lb.topk(2, -1).values
+    gap = top2[:, 0] - top2[:, 1]
+    parts = got_t[:, 0] != want_t[:, 0]
+    serve_s = got["serve"]
+    check(f"{label} serve, mesh {serve_s['mesh']}, --mode tp_fsdp: first "
+          f"tokens part only within rounding (gap <= 2 max |diff|)",
+          bool((gap[parts] <= 2 * diff[parts]).all()),
+          f"{(got_t == want_t).float().mean().item():.4f} of tokens equal, "
+          f"first tokens part at {parts.nonzero().flatten().tolist()}; per "
+          f"sequence max |diff| of the first logits "
+          f"{[float(f'{v:.4g}') for v in diff.tolist()]}, gap "
+          f"{[float(f'{v:.4g}') for v in gap.tolist()]}; prefill "
+          f"{serve_s['prefill_ms']:.3f} ms (one card "
+          f"{one['serve']['prefill_ms']:.3f}), decode "
+          f"{serve_s['decode_ms_per_step']:.3f} ms a step (one card "
+          f"{one['serve']['decode_ms_per_step']:.3f}); peak per rank "
+          f"{gib(serve_s['peak_bytes_per_rank'])} GiB")
+    rep.update(runs=runs, first_parts=parts.tolist(),
+               first_logits_max_abs_diff=diff.tolist(), base_gap=gap.tolist(),
+               phase_s=time.perf_counter() - t0)
+    print(f"  the kv-group run took {rep['phase_s']:.1f} s")
+    print(json.dumps({"sharded_kv_group": rep}))
     return rep
 
 
@@ -3049,22 +3262,42 @@ def one_device_qwen() -> tuple:
             return json.load(fs), json.load(ft)
 
 
-def sharded_alone() -> int:
+# ``--sharded [PART...]``'s parts, in the order they run (all by default)
+SHARDED_PARTS = ("qwen", "minitron", "moe", "hybrid", "dp", "vlm",
+                 "kv_group", "dryrun")
+
+
+def sharded_alone(parts=SHARDED_PARTS) -> int:
     """``--sharded``: phase 9's qwen runs over every card, held against
     one-device runs of ``launch.train`` (3 steps) and ``launch.serve`` at
-    phase 6's and phase 5's shapes, then the wide runs (4 cards)."""
+    phase 6's and phase 5's shapes, then the wide runs (4 cards); of
+    ``SHARDED_PARTS``, those of ``parts``."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    unknown = set(parts) - set(SHARDED_PARTS)
+    if unknown:
+        print(f"chip_smoke: --sharded takes parts of {SHARDED_PARTS}, not "
+              f"{sorted(unknown)}", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    served, trained = one_device_qwen()
-    torch.cuda.empty_cache()
-    phase_sharded(served, trained)
-    phase_wide()
-    phase_wide_families()
-    phase_mesh_dryrun_vs_card()
+    t0 = time.perf_counter()
+    if "qwen" in parts:
+        served, trained = one_device_qwen()
+        torch.cuda.empty_cache()
+        phase_sharded(served, trained)
+    if {"minitron", "moe"} & set(parts):
+        phase_wide(parts)
+    if {"hybrid", "dp", "vlm"} & set(parts):
+        phase_wide_families(parts)
+    if "kv_group" in parts:
+        phase_kv_group()
+    if "dryrun" in parts:
+        phase_mesh_dryrun_vs_card()
+    print(f"  --sharded {' '.join(parts)} took "
+          f"{time.perf_counter() - t0:.1f} s")
     return 1 if FAILURES else 0
 
 
@@ -3099,7 +3332,7 @@ def main() -> int:
     served = timed("5", phase_served_model)
     if FAILURES:
         return 1
-    # phase 8's eight dry-run children trace on the host, one process a cell
+    # phase 8's eleven dry-run children trace on the host, one process a cell
     # (single-threaded): (b)'s beside phase 6 (prefill_32k alone takes
     # minutes), (e)'s beside phase 7; phase 7b waits for all of them
     with tempfile.TemporaryDirectory(prefix="tcm-dryrun-") as tmp:
@@ -3171,8 +3404,14 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--resume-check"]:
         resume_check()
         sys.exit(0)
-    if sys.argv[1:] == ["--sharded"]:
-        sys.exit(sharded_alone())
+    if sys.argv[1:2] == ["--sharded"]:
+        sys.exit(sharded_alone(tuple(sys.argv[2:]) or SHARDED_PARTS))
+    if sys.argv[1:2] == ["--qwen"]:
+        qwen_child(sys.argv[2], [int(m) for m in sys.argv[3:]])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--kvgroup"]:
+        kv_group_child(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] == ["--families"]:
         families_child(sys.argv[2])
         sys.exit(0)

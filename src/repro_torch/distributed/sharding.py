@@ -414,18 +414,49 @@ def kv_group(q_shape, kv_shape) -> Optional[Tuple]:
     """Inside the active context, where neither head count divides the
     extent n of the mode's 'heads' axes but n is twice the kv heads
     (yi-34b's 56 q and 8 kv heads over 16): (the mesh dims of those axes,
-    c = 2 ranks a kv head, this rank's kv head).  Each pair of ranks
-    attends with one kv head and its q heads, as the reference's GSPMD
-    places each kv head on 2 devices; else None.  Only c = 2 is taken: the
-    two halves a head's output is summed from add up to it exactly, where
-    more shares could round in the all-reduce."""
+    c = 2 ranks a kv head, this rank's kv head, its place among the c).
+    Each pair of ranks attends with one kv head and its q heads, as the
+    reference's GSPMD places each kv head on 2 devices; else None.  Only
+    c = 2 is taken: the two halves a head's output is summed from add up
+    to it exactly, where more shares could round in the all-reduce."""
     dmesh, mode = active()
     dims = _heads_dims(dmesh, mode)
     n = math.prod(dmesh.size(d) for d in dims)
     hq, hkv = q_shape[2], kv_shape[2]
     if not dims or hq % n == 0 or hkv < 2 or n != 2 * hkv:
         return None
-    return dims, 2, _flat_coord(dmesh, dims) // 2
+    return (dims, 2) + divmod(_flat_coord(dmesh, dims), 2)
+
+
+def heads_split() -> Tuple[Tuple[int, ...], int, int]:
+    """Inside the active context: (the mesh dims of extent above 1 that
+    the mode's 'heads' axes map to, the number n of ranks they span, this
+    rank's place among them, 0 <= part < n, major to minor).  Where the
+    heads cannot go to those ranks, the attention splits its rows or its
+    keys over them instead (``models.layers._attend``)."""
+    dmesh, mode = active()
+    dims = tuple(d for d in _heads_dims(dmesh, mode) if dmesh.size(d) > 1)
+    return (dims, math.prod(dmesh.size(d) for d in dims),
+            _flat_coord(dmesh, dims))
+
+
+def split_as_rows_of(x, w):
+    """``x`` (..., K) before the product ``x @ w`` with the DTensor ``w``
+    (K, N): where a gradient flows over a mesh of more than one device,
+    ``x``'s last dim split as ``w``'s rows are, on the mesh dims where
+    ``x`` is replicated (a local slice: nothing moves forward).  Each
+    rank then forms the weight gradient of its own rows of ``w``, where
+    with ``x`` whole on every rank each formed the whole of it (the
+    attention's output over the merged heads, whose heads were not split).
+    Anything else is ``x``."""
+    from torch.distributed.tensor import Shard
+
+    if not (is_dtensor(x) and is_dtensor(w) and x.requires_grad
+            and torch.is_grad_enabled() and x.device_mesh.size() > 1):
+        return x
+    pl = tuple(Shard(x.ndim - 1) if b.is_shard(0) and a.is_replicate()
+               else a for a, b in zip(x.placements, w.placements))
+    return _moved(x, pl)
 
 
 def local_offset(x, dim: int) -> int:

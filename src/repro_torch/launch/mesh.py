@@ -142,10 +142,12 @@ def init_distributed(device: str = "cuda") -> torch.device:
 def run_launched(model_parallel: int, dev: torch.device, run):
     """A launcher's run: ``run(dev, mesh, device_mesh)``.  Under
     ``torch.distributed.run`` the ranks join the group (``init_distributed``
-    on ``dev``'s type, left again at the end) and form the (data, model)
-    mesh with 'model' = ``model_parallel``, which must divide them; a
-    process started alone runs on ``dev`` with no ``DeviceMesh`` (None),
-    and there ``model_parallel`` above 1 raises ValueError."""
+    on ``dev``'s type, left again at the end; a group already up is used
+    and left up, so one process can run several launches in it) and form
+    the (data, model) mesh with 'model' = ``model_parallel``, which must
+    divide them; a process started alone runs on ``dev`` with no
+    ``DeviceMesh`` (None), and there ``model_parallel`` above 1 raises
+    ValueError."""
     if not launched():
         if model_parallel != 1:
             raise ValueError(
@@ -154,12 +156,14 @@ def run_launched(model_parallel: int, dev: torch.device, run):
                 f"multiple of {model_parallel} ranks with python -m "
                 f"torch.distributed.run")
         return run(dev, make_host_mesh(1, devs=[dev]), None)
+    joined = not dist.is_initialized()
     dev = init_distributed(dev.type)
     try:
         mesh = make_host_mesh(model_parallel)
         return run(dev, mesh, device_mesh(mesh, dev.type))
     finally:
-        dist.destroy_process_group()
+        if joined:
+            dist.destroy_process_group()
 
 
 def is_main() -> bool:

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -117,41 +117,65 @@ def _chunk_masked(causal: bool, window: int, q_lo: int, q_hi: int,
             or (window > 0 and k_hi <= q_lo - window))
 
 
+class _Cfg(NamedTuple):
+    """What the chunked attention needs besides its tensors: masking,
+    chunks, where q chunk ``qi`` starts (``q_offset + qi * q_step``: rows
+    of one chunk are contiguous, chunks ``q_step`` apart), where k[0]
+    lies (``k_offset``) and the keys at or past ``kv_valid`` masked, all
+    in absolute positions."""
+    causal: bool
+    window: int
+    q_chunk: int
+    kv_chunk: int
+    q_offset: int
+    kv_valid: int
+    q_step: int
+    k_offset: int = 0
+
+
+def _chunk_online(q, k, v, cfgt, qi, scale):
+    """q chunk ``qi``'s running (m, l, acc), f32, of the streaming softmax
+    over every block of ``k``/``v`` it sees, scores scaled by ``scale``:
+    m, l (B, Hkv, rep, q_chunk), acc (B, Hkv, rep, q_chunk, Dh)."""
+    causal, window, q_chunk, kv_chunk, q_offset, kv_valid, q_step, k0 = cfgt
+    B, _, Hkv, rep, Dh = q.shape
+    nk = k.shape[1] // kv_chunk
+    dev = q.device
+    q_lo = q_offset + qi * q_step
+    q_pos = q_lo + torch.arange(q_chunk, device=dev)
+    qb = (q[:, qi * q_chunk:(qi + 1) * q_chunk] * scale).float()
+    m = torch.full((B, Hkv, rep, q_chunk), -math.inf, device=dev)
+    l = torch.zeros((B, Hkv, rep, q_chunk), device=dev)
+    acc = torch.zeros((B, Hkv, rep, q_chunk, Dh), device=dev)
+    for ci in range(nk):
+        k_lo = ci * kv_chunk
+        if _chunk_masked(causal, window, q_lo, q_lo + q_chunk - 1, k0 + k_lo,
+                         k0 + k_lo + kv_chunk - 1, kv_valid):
+            continue
+        kblk = k[:, k_lo:k_lo + kv_chunk].float()
+        vblk = v[:, k_lo:k_lo + kv_chunk]
+        k_pos = k0 + k_lo + torch.arange(kv_chunk, device=dev)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qb, kblk)
+        mask = _mask_for(causal, window, q_pos, k_pos, kv_valid)
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p.to(q.dtype).float(), vblk.float())
+        m = m_new
+    return m, l, acc
+
+
 def _flash_fwd(q, k, v, cfgt):
     """The forward over padded, grouped ``q`` (B, Sqp, Hkv, rep, Dh) and
     ``k``/``v`` (B, Skp, Hkv, Dh): (out like ``q``, lse (B, Hkv, rep, Sqp)
     f32), the reference's ``_flash_fwd_impl``."""
-    causal, window, q_chunk, kv_chunk, q_offset, kv_valid = cfgt
-    B, Sqp, Hkv, rep, Dh = q.shape
-    nq, nk = Sqp // q_chunk, k.shape[1] // kv_chunk
-    scale = weak_scalar(1.0 / math.sqrt(Dh), q.dtype)
-    dev = q.device
+    scale = weak_scalar(1.0 / math.sqrt(q.shape[-1]), q.dtype)
     outs, lses = [], []
-    for qi in range(nq):
-        q_lo = q_offset + qi * q_chunk
-        q_pos = q_lo + torch.arange(q_chunk, device=dev)
-        qb = (q[:, qi * q_chunk:(qi + 1) * q_chunk] * scale).float()
-        m = torch.full((B, Hkv, rep, q_chunk), -math.inf, device=dev)
-        l = torch.zeros((B, Hkv, rep, q_chunk), device=dev)
-        acc = torch.zeros((B, Hkv, rep, q_chunk, Dh), device=dev)
-        for ci in range(nk):
-            k_lo = ci * kv_chunk
-            if _chunk_masked(causal, window, q_lo, q_lo + q_chunk - 1, k_lo,
-                             k_lo + kv_chunk - 1, kv_valid):
-                continue
-            kblk = k[:, k_lo:k_lo + kv_chunk].float()
-            vblk = v[:, k_lo:k_lo + kv_chunk]
-            k_pos = k_lo + torch.arange(kv_chunk, device=dev)
-            s = torch.einsum("bqgrd,bkgd->bgrqk", qb, kblk)
-            mask = _mask_for(causal, window, q_pos, k_pos, kv_valid)
-            s = torch.where(mask, s, -1e30)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bgrqk,bkgd->bgrqd", p.to(q.dtype).float(), vblk.float())
-            m = m_new
+    for qi in range(q.shape[1] // cfgt.q_chunk):
+        m, l, acc = _chunk_online(q, k, v, cfgt, qi, scale)
         l = torch.clamp_min(l, 1e-30)
         outs.append((acc / l[..., None]).permute(0, 3, 1, 2, 4).to(q.dtype))
         lses.append(m + torch.log(l))
@@ -165,7 +189,7 @@ def _flash_bwd(q, k, v, out, lse, dout, cfgt):
     p, dout and ds are rounded to q's dtype before each product, the
     products are summed in f32, and dq/dk/dv accumulate in f32.  The blocks
     the forward skips are skipped here too: their p is exactly 0."""
-    causal, window, q_chunk, kv_chunk, q_offset, kv_valid = cfgt
+    causal, window, q_chunk, kv_chunk, q_offset, kv_valid, q_step, k0 = cfgt
     B, Sqp, Hkv, rep, Dh = q.shape
     nq, nk = Sqp // q_chunk, k.shape[1] // kv_chunk
     dt = q.dtype
@@ -178,7 +202,7 @@ def _flash_bwd(q, k, v, out, lse, dout, cfgt):
     dqs = []
     for qi in range(nq):
         rows = slice(qi * q_chunk, (qi + 1) * q_chunk)
-        q_lo = q_offset + qi * q_chunk
+        q_lo = q_offset + qi * q_step
         q_pos = q_lo + torch.arange(q_chunk, device=dev)
         qblk = q[:, rows]
         qb = (qblk * q_scale).float()
@@ -188,12 +212,12 @@ def _flash_bwd(q, k, v, out, lse, dout, cfgt):
         dq = torch.zeros(qblk.shape, device=dev)
         for ci in range(nk):
             k_lo = ci * kv_chunk
-            if _chunk_masked(causal, window, q_lo, q_lo + q_chunk - 1, k_lo,
-                             k_lo + kv_chunk - 1, kv_valid):
+            if _chunk_masked(causal, window, q_lo, q_lo + q_chunk - 1,
+                             k0 + k_lo, k0 + k_lo + kv_chunk - 1, kv_valid):
                 continue
             cols = slice(k_lo, k_lo + kv_chunk)
             kblk, vblk = k[:, cols].float(), v[:, cols].float()
-            k_pos = k_lo + torch.arange(kv_chunk, device=dev)
+            k_pos = k0 + k_lo + torch.arange(kv_chunk, device=dev)
             s = torch.einsum("bqgrd,bkgd->bgrqk", qb, kblk)
             mask = _mask_for(causal, window, q_pos, k_pos, kv_valid)
             p = torch.where(mask, torch.exp(s - lse_b), 0.0)
@@ -225,24 +249,12 @@ class _Flash(torch.autograd.Function):
         return (*_flash_bwd(q, k, v, out, lse, dout, ctx.cfgt), None)
 
 
-def flash_attention(q, k, v, *, causal: bool, window: int = 0,
-                    q_offset: int = 0, q_chunk: int = 512,
-                    kv_chunk: int = 512, kv_valid: Optional[int] = None):
-    """Streaming softmax attention, chunked over q and kv, with the
-    reference's manual flash backward (``_Flash``).
-
-    q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh).  GQA: Hq % Hkv == 0.
-    ``q_offset`` is the absolute position of q[0] relative to k[0] (decode
-    with a cache passes the fill index); keys at or past ``kv_valid``
-    (default Sk) are masked.  Scores and the running (m, l, acc) are f32,
-    p is cast to q's dtype before P.V; masked scores are -1e30, m starts
-    at -inf, l is floored at 1e-30.  Where no gradient is wanted (serving
-    runs under ``no_grad``) the forward runs alone and keeps nothing for
-    a backward.  Returns (B, Sq, Hq, Dh).
-    """
+def _grouped(q, k, v, *, causal, window, q_offset, q_chunk, kv_chunk,
+             kv_valid, q_step=None, k_offset=0):
+    """``q``, ``k``, ``v`` padded to whole chunks, ``q`` grouped as
+    (B, Sqp, Hkv, rep, Dh), and their ``_Cfg``."""
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    rep = Hq // Hkv
     kv_chunk = min(kv_chunk, Sk)
     q_chunk = min(q_chunk, Sq)
     nk = -(-Sk // kv_chunk)
@@ -253,61 +265,169 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
     if pad_q:
         q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
-    qg = q.reshape(B, nq * q_chunk, Hkv, rep, Dh)
-    cfgt = (bool(causal), int(window), q_chunk, kv_chunk, int(q_offset),
-            Sk if kv_valid is None else int(kv_valid))
+    qg = q.reshape(B, nq * q_chunk, Hkv, Hq // Hkv, Dh)
+    cfgt = _Cfg(bool(causal), int(window), q_chunk, kv_chunk, int(q_offset),
+                k_offset + Sk if kv_valid is None else int(kv_valid),
+                q_chunk if q_step is None else int(q_step), int(k_offset))
+    return qg, k, v, cfgt
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset: int = 0, q_chunk: int = 512,
+                    kv_chunk: int = 512, kv_valid: Optional[int] = None,
+                    q_step: Optional[int] = None):
+    """Streaming softmax attention, chunked over q and kv, with the
+    reference's manual flash backward (``_Flash``).
+
+    q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh).  GQA: Hq % Hkv == 0.
+    ``q_offset`` is the absolute position of q[0] relative to k[0] (decode
+    with a cache passes the fill index); keys at or past ``kv_valid``
+    (default Sk) are masked.  ``q_step`` (default ``q_chunk``) is the
+    distance in positions between the first rows of consecutive q chunks:
+    a rank's share of the rows of every chunk (``_own_rows``) passes its
+    rows' chunk and the whole chunk's length.  Scores and the running
+    (m, l, acc) are f32, p is cast to q's dtype before P.V; masked scores
+    are -1e30, m starts at -inf, l is floored at 1e-30.  Where no gradient
+    is wanted (serving runs under ``no_grad``) the forward runs alone and
+    keeps nothing for a backward.  Returns (B, Sq, Hq, Dh).
+    """
+    B, Sq, Hq, Dh = q.shape
+    qg, k, v, cfgt = _grouped(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, kv_valid=kv_valid,
+                              q_step=q_step)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         out = _Flash.apply(qg, k, v, cfgt)
     else:
         out = _flash_fwd(qg, k, v, cfgt)[0]
-    return out.reshape(B, nq * q_chunk, Hq, Dh)[:, :Sq]
+    return out.reshape(B, qg.shape[1], Hq, Dh)[:, :Sq]
 
 
 def _attend(q, k, v, **kw):
     """``flash_attention(q, k, v, **kw)``.  On DTensors it runs per rank
     under ``local_map``, on the layouts of ``sharding.attention_pspecs``:
-    attention is independent per (batch, head), so each rank's result is
-    exact, and a sequence sharded by ``act_seq`` is gathered first.  Where
-    q's heads are split and k/v's are whole, a rank attends with the one
-    kv head its q heads read, and the gradient of k/v is a sum over the
-    ranks that split the heads.  Where neither splits but each kv head
-    can go to 2 ranks (``sharding.kv_group``), a rank attends with its kv
-    head and that head's q heads, and the output is the sum over the
-    heads' axes of each rank's share (``_kv_group``)."""
+    attention is independent per (batch, head) and per q row, so each
+    rank's result is exact, and a sequence sharded by ``act_seq`` is
+    gathered first.  Where q's heads are split and k/v's are whole, a
+    rank attends with the one kv head its q heads read, and the gradient
+    of k/v is a sum over the ranks that split the heads.  Where neither
+    splits but each kv head can go to 2 ranks (``sharding.kv_group``), a
+    rank attends with its kv head and that head's q heads, and the output
+    is the sum over the heads' axes of each rank's share (``_kv_group``).
+    Where the q heads are not split (``sharding.heads_split`` names the
+    mesh dims that would split them), the ranks of those dims split the
+    work instead: with a gradient, the rows of every q chunk
+    (``_own_rows``: each rank its share, zeros on the others' rows, the
+    output and the gradients of q, k and v summed over those dims); for
+    one new token (a decode step), the keys (``_split_keys``: each rank
+    its slice of the cache's slots, the softmax's partial sums merged by
+    collectives).  A prefill keeps every row on every rank.
+    Each split needs its extent to divide the rows of a chunk or the
+    slots; on a mesh of extent 1 there is none."""
     if not sharding.is_dtensor(q):
         return flash_attention(q, k, v, **kw)
-    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor import Partial, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
     qs, kvs = sharding.attention_pspecs(q.shape, k.shape)
     qp, kvp = sharding.placements(qs, mesh), sharding.placements(kvs, mesh)
-    fn, kv_grad = functools.partial(flash_attention, **kw), kvp
-    group = (sharding.kv_group(q.shape, k.shape) if qs[2] is None
-             else None)
-    if group is not None:
-        dims, c, j = group
-        summed = [tuple(Partial() if i in dims else p
-                        for i, p in enumerate(pl)) for pl in (qp, kvp)]
-        core = local_map(
-            functools.partial(_kv_group, j=j, rep=q.shape[2] // k.shape[2],
-                              c=c, **kw),
-            out_placements=list(summed[0]), in_placements=(qp, kvp, kvp),
-            in_grad_placements=(summed[0], summed[1], summed[1]),
-            device_mesh=mesh, redistribute_inputs=True)
-        return sharding._moved(core(q, k, v), qp)
-    if qs[2] is not None and kvs[2] is None:
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    fn, q_grad, kv_grad, out_pl = (functools.partial(flash_attention, **kw),
+                                   qp, kvp, qp)
+    if qs[2] is None:
+        group = sharding.kv_group(q.shape, k.shape)
+        dims, n, part = (group[0], group[1], group[3]) if group else \
+            sharding.heads_split()
+        rows = grad and _rows_divide(q.shape[1], kw.get("q_chunk", 512), n)
+        summed = [tuple(Partial() if i in dims else p for i, p in
+                        enumerate(pl)) for pl in (qp, kvp)]
+        if group is not None:
+            fn = functools.partial(_kv_group, j=group[2],
+                                   rep=q.shape[2] // k.shape[2], c=n,
+                                   part=part, rows=rows, **kw)
+            q_grad, kv_grad, out_pl = summed[0], summed[1], summed[0]
+        elif rows:
+            fn = functools.partial(_own_rows, part=part, parts=n, **kw)
+            q_grad, kv_grad, out_pl = summed[0], summed[1], summed[0]
+        elif (dims and not grad and q.shape[1] == 1
+              and k.shape[1] % n == 0):
+            kvp = tuple(Shard(1) if i in dims else p
+                        for i, p in enumerate(kvp))
+            fn = functools.partial(
+                _split_keys, lo=part * (k.shape[1] // n),
+                group=sharding._group(mesh, dims), **kw)
+    elif kvs[2] is None:
         rep = q.shape[2] // k.shape[2]
         j = sharding.local_index(qp, mesh, q.shape)[2].start // rep
         kv_grad = tuple(Partial() if p.is_shard(2) else kp
                         for p, kp in zip(qp, kvp))
         fn = functools.partial(_one_kv_head, j=j, **kw)
-    core = local_map(fn, out_placements=list(qp),
+    core = local_map(fn, out_placements=list(out_pl),
                      in_placements=(qp, kvp, kvp),
-                     in_grad_placements=(qp, kv_grad, kv_grad),
+                     in_grad_placements=(q_grad, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)
-    return core(q, k, v)
+    return sharding._moved(core(q, k, v), qp)
+
+
+def _rows_divide(Sq: int, q_chunk: int, parts: int) -> bool:
+    """Whether ``parts`` ranks can each take an equal share of the rows of
+    every q chunk (``_own_rows``): whole chunks, each split evenly."""
+    q_chunk = min(q_chunk, Sq)
+    return parts > 1 and Sq % q_chunk == 0 and q_chunk % parts == 0
+
+
+def _own_rows(q, k, v, *, part: int, parts: int, q_chunk: int = 512,
+              q_offset: int = 0, **kw):
+    """The attention of share ``part`` of ``parts`` of the rows of every q
+    chunk, zeros on the other rows: rows ``part * sub + [0, sub)`` of each
+    chunk of ``q_chunk`` (sub = q_chunk / parts), the reference's split
+    of each chunk's rows over 'model' (its ``qcs`` constraint).  Summed
+    over the shares, each row counts once, exactly (x + 0 is x); only the
+    share's rows reach its gradient of ``q``.  ``_chunk_masked`` skips the
+    blocks that none of the share's rows sees."""
+    Sq = q.shape[1]
+    q_chunk = min(q_chunk, Sq)
+    sub = q_chunk // parts
+    rows = (torch.arange(Sq // q_chunk, device=q.device)[:, None] * q_chunk
+            + part * sub + torch.arange(sub, device=q.device)).reshape(-1)
+    out = flash_attention(q[:, rows], k, v, q_chunk=sub, q_step=q_chunk,
+                          q_offset=q_offset + part * sub, **kw)
+    return torch.zeros_like(q).index_copy(1, rows, out)
+
+
+def _split_keys(q, k, v, *, lo: int, group, causal: bool, window: int = 0,
+                q_offset: int = 0, q_chunk: int = 512, kv_chunk: int = 512,
+                kv_valid: Optional[int] = None):
+    """``flash_attention`` of all of ``q`` against this rank's slice of the
+    keys, ``k``/``v`` holding slots ``lo + [0, Sk)`` of the whole (split-K):
+    each key masked by its slot (``kv_valid`` counts the whole's), this
+    slice's running (m, l, acc) in f32, merged with the other slices' by
+    the online softmax's own rule over ``group``: the max of m, then the
+    sums of l and acc, each rescaled by exp(m - max).  A slice that every
+    row's mask hides (m = -inf, l = 0) adds 0.  No gradient: a decode
+    step's."""
+    import torch.distributed._functional_collectives as funcol
+
+    B, Sq, Hq, Dh = q.shape
+    Sk = k.shape[1]
+    valid = lo + Sk if kv_valid is None else min(int(kv_valid), lo + Sk)
+    qg, k, v, cfgt = _grouped(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, kv_valid=valid, k_offset=lo)
+    scale = weak_scalar(1.0 / math.sqrt(Dh), q.dtype)
+    parts = [_chunk_online(qg, k, v, cfgt, qi, scale)
+             for qi in range(qg.shape[1] // cfgt.q_chunk)]
+    m, l, acc = (torch.cat([p[i] for p in parts], dim=3) for i in range(3))
+    top = torch.clamp_min(funcol.all_reduce(m, "max", group), -1e30)
+    w = torch.exp(m - top)
+    l = funcol.all_reduce(l * w, "sum", group)
+    acc = funcol.all_reduce(acc * w[..., None], "sum", group)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out.reshape(B, qg.shape[1], Hq, Dh)[:, :Sq]
 
 
 def _one_kv_head(q, k, v, *, j: int, **kw):
@@ -316,15 +436,21 @@ def _one_kv_head(q, k, v, *, j: int, **kw):
     return flash_attention(q, k[:, :, j:j + 1], v[:, :, j:j + 1], **kw)
 
 
-def _kv_group(q, k, v, *, j: int, rep: int, c: int, **kw):
+def _kv_group(q, k, v, *, j: int, rep: int, c: int, part: int, rows: bool,
+              **kw):
     """A rank's share where ``c`` ranks share each kv head: its kv head
-    ``j`` with that head's ``rep`` q heads, scaled by 1/c, zeros on the
-    other heads.  Summed over the ranks each group counts once, exactly
-    (``sharding.kv_group`` gives c = 2: x/2 + x/2 is x, and both ranks of
-    a group compute the same)."""
+    ``j`` with that head's ``rep`` q heads, zeros on the other heads.
+    With ``rows`` (a gradient is wanted), its share ``part`` of the rows
+    of every q chunk (``_own_rows``), zeros on the others'; else all the
+    rows, scaled by 1/c.  Summed over the ranks each group counts once,
+    exactly (``sharding.kv_group`` gives c = 2: x/2 + x/2 is x, and both
+    ranks of a group compute the same)."""
     lo = j * rep
-    out = flash_attention(q[:, :, lo:lo + rep], k[:, :, j:j + 1],
-                          v[:, :, j:j + 1], **kw) / c
+    qj, kj, vj = q[:, :, lo:lo + rep], k[:, :, j:j + 1], v[:, :, j:j + 1]
+    if rows:
+        out = _own_rows(qj, kj, vj, part=part, parts=c, **kw)
+    else:
+        out = flash_attention(qj, kj, vj, **kw) / c
     return F.pad(out, (0, 0, lo, q.shape[2] - lo - rep))
 
 
@@ -401,6 +527,17 @@ def ring_fill(buf: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
     return buf
 
 
+def _out_proj(out, wo, dt):
+    """``out @ wo`` laid out as the MLP's output: the partial sums reduced,
+    and the gradient back through this product arrives with a whole
+    sequence.  Where a gradient flows and ``out`` is whole along the
+    merged heads, each rank takes its own rows of ``wo`` first
+    (``sharding.split_as_rows_of``), so it forms only those rows' weight
+    gradient."""
+    out = sharding.split_as_rows_of(out, wo)
+    return constrain(out @ wo.to(dt), ("batch", None, None))
+
+
 def attention_block(cfg, p: Params, x, positions, *, cache=None,
                     causal=True, window=0, kv_from=None):
     """Full attention block; returns (out, new_cache).
@@ -419,7 +556,7 @@ def attention_block(cfg, p: Params, x, positions, *, cache=None,
     if kv_from is not None:
         out = sharding.pinned(_attend(q, k, v, causal=False)
                               .reshape(B, S, cfg.q_dim))
-        return constrain(out @ p["wo"].to(dt), ("batch", None, None)), None
+        return _out_proj(out, p["wo"], dt), None
 
     new_cache = None
     if cache is None:
@@ -458,9 +595,7 @@ def attention_block(cfg, p: Params, x, positions, *, cache=None,
     # heads merged back: where they were not split over ranks, the
     # gradient must come back whole along them (``sharding.pinned``)
     out = sharding.pinned(out.reshape(B, S, cfg.q_dim))
-    # the MLP's output layout: the partial sums reduced, and the gradient
-    # back through this product arrives with a whole sequence
-    return constrain(out @ p["wo"].to(dt), ("batch", None, None)), new_cache
+    return _out_proj(out, p["wo"], dt), new_cache
 
 
 def cross_attention_cached(cfg, p: Params, x, ck, cv):
@@ -476,7 +611,7 @@ def cross_attention_cached(cfg, p: Params, x, ck, cv):
                        ("batch", "act_seq", None, None)])
     out = sharding.pinned(_attend(q, ck, cv, causal=False)
                           .reshape(B, S, cfg.q_dim))
-    return constrain(out @ p["wo"].to(dt), ("batch", None, None))
+    return _out_proj(out, p["wo"], dt)
 
 
 def cross_kv(cfg, p: Params, memory):

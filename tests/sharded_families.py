@@ -36,6 +36,7 @@ shard shapes (parameters and caches) and checkpoints exact.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
@@ -373,12 +374,13 @@ def reference_run(out: Path, n: int, models) -> None:
 
 
 def reference_layout(out: Path, model: str, shape, mode: str, rows: int,
-                     over: dict) -> None:
+                     over: dict, prompt: int = PROMPT,
+                     decodes: int = DECODES) -> None:
     """The reference's ``_layout_run`` of ``model`` (its smoke config with
     ``over``) from the port's weights in ``layout_init.npz``, over
-    ``shape`` in ``mode``: the last logits of ``rows`` prompts prefilled
-    and decoded ``DECODES`` steps, then one train step's loss and grad
-    norm, as ``ref_layout.npz``."""
+    ``shape`` in ``mode``: the last logits of ``rows`` prompts of
+    ``prompt`` tokens prefilled and decoded ``decodes`` steps, then one
+    train step's loss and grad norm, as ``ref_layout.npz``."""
     import jax.numpy as jnp
     from repro.data import pipeline
     from repro.models import lm
@@ -390,8 +392,8 @@ def reference_layout(out: Path, model: str, shape, mode: str, rows: int,
     mesh = _jax_mesh(jax, shape)
     p, o, psh, _, _ = _jax_state(jax, oc, params_abs, specs, mesh, mode,
                                  host)
-    batch = {k: jnp.asarray(v[:rows], jnp.int32 if k == "tokens" else
-                            jnp.float32)
+    batch = {k: jnp.asarray(v[:rows, :prompt] if k == "tokens" else v[:rows],
+                            jnp.int32 if k == "tokens" else jnp.float32)
              for k, v in _prompts(cfg).items()}
     cache_abs = jax.eval_shape(
         lambda: lm.init_cache(cfg, rows, _cache_len(cfg)))
@@ -399,7 +401,7 @@ def reference_layout(out: Path, model: str, shape, mode: str, rows: int,
                                        mode)
     last, cache = prefill(p, batch, lm.init_cache(cfg, rows, _cache_len(cfg)))
     lasts = [np.asarray(last)]
-    for _ in range(DECODES):
+    for _ in range(decodes):
         toks = np.argmax(lasts[-1], -1)[:, None].astype(np.int32)
         logits, cache = decode(p, toks, cache)
         lasts.append(np.asarray(logits))
@@ -738,13 +740,16 @@ def _ranks(world: int, out: Path, models):
 
 
 def serve_rows(cfg, params, mesh, mode: str, rows: int,
-               steps: int = DECODES):
-    """``rows`` prompts (the first of ``_prompts``) prefilled and decoded
-    greedily for ``steps`` tokens: the last logits of each, as numpy."""
+               steps: int = DECODES, prompt: int = PROMPT):
+    """``rows`` prompts (the first of ``_prompts``, their first ``prompt``
+    tokens) prefilled and decoded greedily for ``steps`` tokens: the last
+    logits of each, as numpy."""
     from repro_torch.models import lm
     from repro_torch.serving.engine import make_serve_steps, place_cache
 
-    batch = {k: torch.from_numpy(v[:rows]) for k, v in _prompts(cfg).items()}
+    batch = {k: torch.from_numpy(v[:rows, :prompt] if k == "tokens"
+                                 else v[:rows])
+             for k, v in _prompts(cfg).items()}
     prefill, decode = make_serve_steps(cfg, mesh, mode)
     cache = lm.init_cache(cfg, rows, _cache_len(cfg), "cpu")
     if mesh is not None:
@@ -757,9 +762,11 @@ def serve_rows(cfg, params, mesh, mode: str, rows: int,
     return np.stack([_full(x) for x in lasts])
 
 
-def _layout_run(cfg, host, mesh, mode: str, rows: int) -> dict:
-    """``serve_rows`` and one train step (loss, grad norm) of ``cfg`` from
-    the weights ``host``, over ``mesh`` in ``mode`` (None: one device)."""
+def _layout_run(cfg, host, mesh, mode: str, rows: int,
+                serve=(PROMPT, DECODES)) -> dict:
+    """``serve_rows`` (prompts of ``serve[0]`` tokens, ``serve[1]`` decode
+    steps) and one train step (loss, grad norm) of ``cfg`` from the
+    weights ``host``, over ``mesh`` in ``mode`` (None: one device)."""
     from repro_torch.distributed.sharding import distribute
     from repro_torch.models import lm
     from repro_torch.optim.adamw import (OptConfig, init_opt_state,
@@ -770,16 +777,41 @@ def _layout_run(cfg, host, mesh, mode: str, rows: int) -> dict:
     if mesh is not None:
         opt = distribute(opt, opt_state_specs(oc, specs), mesh, mode)
         params = distribute(params, specs, mesh, mode)
-    logits = serve_rows(cfg, params, mesh, mode, rows)
+    logits = serve_rows(cfg, params, mesh, mode, rows, steps=serve[1],
+                        prompt=serve[0])
     _, _, losses, gnorms = train(cfg, params, opt, mesh, mode, steps=1)
     return {"logits": logits, "loss": np.asarray(losses),
             "grad_norm": np.asarray(gnorms)}
 
 
+@contextlib.contextmanager
+def attended(count: list):
+    """Adds to ``count[0]`` the (q row, q head, key) triples of every
+    block of q rows that the attention's forward runs in this process
+    (``layers._chunk_online``, by its operands' shapes: a rank's rows and
+    its keys)."""
+    from repro_torch.models import layers
+
+    inner = layers._chunk_online
+
+    def counted(q, k, v, cfgt, qi, scale):
+        B, _, Hkv, rep, _ = q.shape
+        count[0] += B * Hkv * rep * cfgt.q_chunk * k.shape[1]
+        return inner(q, k, v, cfgt, qi, scale)
+
+    layers._chunk_online = counted
+    try:
+        yield
+    finally:
+        layers._chunk_online = inner
+
+
 def layout_rank(rank: int, world: int, out: str, model: str, shape,
-                mode: str, rows: int, over: dict) -> None:
+                mode: str, rows: int, over: dict,
+                serve=(PROMPT, DECODES)) -> None:
     """One gloo rank of ``_layout_run`` over ``shape`` (data, model) from
-    seeded weights; rank 0 writes the results."""
+    seeded weights; rank 0 writes the results, with the (row, head, key)
+    triples its attention ran (``attended``)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import Mesh, device_mesh
     from repro_torch.models import lm
@@ -794,21 +826,26 @@ def layout_rank(rank: int, world: int, out: str, model: str, shape,
         cfg = cfg_of(model, **over)
         mesh = device_mesh(Mesh(("data", "model"), tuple(shape)), "cpu")
         host = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        got = _layout_run(cfg, host, mesh, mode, rows)
+        count = [0]
+        with attended(count):
+            got = _layout_run(cfg, host, mesh, mode, rows, serve)
         if rank == 0:
-            np.savez(out / "layout.npz", **got)
+            np.savez(out / "layout.npz", attended=np.asarray(count), **got)
     finally:
         dist.destroy_process_group()
 
 
 def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
-                 rows: int, **over) -> None:
+                 rows: int, serve=(PROMPT, DECODES), split: int = 0,
+                 **over) -> None:
     """``model`` (its smoke config with ``over``) from ``lm.init``'s
-    weights, served for ``rows`` prompts and trained one step over
-    ``shape`` in ``mode`` on 4 gloo ranks: the last logits, the loss and
-    the grad norm equal the reference's on the same mesh (a subprocess of
-    ``script`` with 4 host devices, from the same weights) and one
-    device's, within ``TOL``."""
+    weights, served for ``rows`` prompts (``serve``: their length and
+    the decode steps after them) and trained one step over ``shape`` in
+    ``mode`` on 4 gloo ranks: the last logits, the loss and the grad norm
+    equal the reference's on the same mesh (a subprocess of ``script``
+    with 4 host devices, from the same weights) and one device's, within
+    ``TOL``.  With ``split``, rank 0's attention ran exactly 1/``split``
+    of the (row, head, key) triples one device's ran (``attended``)."""
     import torch.multiprocessing as mp
     from repro_torch.models import lm
 
@@ -819,13 +856,17 @@ def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
                 for i, x in enumerate(lm.tree_leaves(host))})
     deadline = time.monotonic() + DEADLINE_S
     ref = _popen(script, "reference-layout", tmp, model,
-                 f"{shape[0]}x{shape[1]}", mode, rows, json.dumps(over))
+                 f"{shape[0]}x{shape[1]}", mode, rows, json.dumps(over),
+                 *serve)
     try:
         _join(mp.start_processes(layout_rank, args=(4, str(tmp), model,
-                                                    shape, mode, rows, over),
+                                                    shape, mode, rows, over,
+                                                    serve),
                                  nprocs=4, join=False, start_method="spawn"),
               deadline)
-        one = _layout_run(cfg, host, None, mode, rows)
+        alone = [0]
+        with attended(alone):
+            one = _layout_run(cfg, host, None, mode, rows, serve)
         _finish(ref, deadline)
     finally:
         if ref.poll() is None:
@@ -836,6 +877,9 @@ def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
         for key in one:
             np.testing.assert_allclose(got[key], want[key], rtol=TOL,
                                        atol=TOL, err_msg=f"{key}, {name}")
+    if split:
+        assert int(got["attended"][0]) * split == alone[0], (
+            int(got["attended"][0]), alone[0])
 
 
 def run_all(script: Path, out: Path, models) -> Path:
@@ -905,7 +949,8 @@ def main(argv) -> None:
         reference_reads(out, argv[3:])
     elif cmd == "reference-layout":
         reference_layout(out, argv[3], tuple(map(int, argv[4].split("x"))),
-                         argv[5], int(argv[6]), json.loads(argv[7]))
+                         argv[5], int(argv[6]), json.loads(argv[7]),
+                         *map(int, argv[8:10]))
     else:
         raise SystemExit(f"unknown command {cmd!r}")
 

@@ -6,13 +6,18 @@ peak-live bytes at most 2.0x.
 The smoke ssm, hybrid and moe configs (bf16 parameters, as the dry-run
 serves) on 4 ranks, (1, 4) and (2, 2), in the reference's modes for
 them: ``tp_fsdp`` for the ssm's and the hybrid's serve cells, ``tp_ep``
-for the moe.  The port's rank 0 is traced over a fake group of 4
+for the moe; and on (1, 4) in ``tp_fsdp``, heads that cannot go 1:1 to
+'model': the hybrid's decode and train step with 6 q heads and 1 kv
+head, and a train step of the dense yi-34b with 6 q and 2 kv heads (a kv
+head to 2 ranks).  The port's rank 0 is traced over a fake group of 4
 (``launch.dryrun.trace_step``); the reference's step is jit'd as its
-dry-run compiles it, on 4 host devices in a subprocess (its
-``launch/dryrun.py`` forces 512 on import), and counted by
-``repro.launch.hlo_parse.summarize`` and XLA's memory analysis.  Where
-a rank ran the whole recurrent block, or every q head of the attention,
-or the whole batch's MoE routing, these cells fell outside the bounds.
+dry-run compiles it (a train step: loss, gradients and AdamW), on 4 host
+devices in a subprocess (its ``launch/dryrun.py`` forces 512 on
+import), and counted by ``repro.launch.hlo_parse.summarize`` and XLA's
+memory analysis.  Where a rank ran the whole recurrent block, or every
+q head of the attention, or every row of a q chunk, or every key of a
+decode step, or the whole batch's MoE routing, or the whole weight
+gradient of ``wo``, these cells fell outside the bounds.
 """
 from __future__ import annotations
 
@@ -32,13 +37,25 @@ sys.path.insert(0, str(Path(__file__).parent))
 from dryrun_sweep_compare import FLOPS_BOUNDS, PEAK_BOUND  # noqa: E402
 
 ARCH = {"ssm": "mamba2-130m", "hybrid": "recurrentgemma-2b",
-        "moe": "phi3.5-moe-42b-a6.6b"}
-# (model, kind, batch, sequence or cache length, mesh (data, model), mode)
-CASES = [("ssm", "decode", 2, 64, (1, 4), "tp_fsdp"),
-         ("ssm", "decode", 4, 64, (2, 2), "tp_fsdp"),
-         ("hybrid", "prefill", 2, 256, (1, 4), "tp_fsdp"),
-         ("hybrid", "prefill", 4, 256, (2, 2), "tp_fsdp"),
-         ("moe", "prefill", 2, 256, (1, 4), "tp_ep")]
+        "moe": "phi3.5-moe-42b-a6.6b", "dense": "yi-34b"}
+# where the heads cannot go 1:1 to 'model' (4): the hybrid's 6 q heads and
+# 1 kv head (its 10 and 1 over 16), the dense model's 6 and 2 (yi-34b's
+# 56 and 8: a kv head to 2 ranks, ``sharding.kv_group``)
+UNSPLIT = {"n_heads": 6, "n_kv_heads": 1}
+GROUPED = {"n_heads": 6, "n_kv_heads": 2}
+# (model, kind, batch, sequence or cache length, mesh (data, model), mode,
+# overrides of the smoke config)
+CASES = [("ssm", "decode", 2, 64, (1, 4), "tp_fsdp", {}),
+         ("ssm", "decode", 4, 64, (2, 2), "tp_fsdp", {}),
+         ("hybrid", "prefill", 2, 256, (1, 4), "tp_fsdp", {}),
+         ("hybrid", "prefill", 4, 256, (2, 2), "tp_fsdp", {}),
+         ("moe", "prefill", 2, 256, (1, 4), "tp_ep", {}),
+         # a decode step reads its slots of the ring, a train step's
+         # ranks take their rows of every q chunk (``layers._attend``)
+         ("hybrid", "decode", 2, 1024, (1, 4), "tp_fsdp",
+          dict(UNSPLIT, window=1024)),
+         ("hybrid", "train", 2, 256, (1, 4), "tp_fsdp", UNSPLIT),
+         ("dense", "train", 2, 512, (1, 4), "tp_fsdp", GROUPED)]
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -59,13 +76,20 @@ def _reference(cases) -> dict:
     from repro.training.step import _abstract_init
 
     out = {}
-    for model, kind, B, S, shape, mode in cases:
-        cfg = ref_config(ARCH[model], smoke=True).scaled(
-            param_dtype="bfloat16")
+    for model, kind, B, S, shape, mode, over in cases:
+        cfg = _config(ref_config, model, kind, over)
         params_abs, specs = _abstract_init(cfg, jax.random.PRNGKey(0))
         mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(shape),
                                  ("data", "model"))
         psh = shardings_for(specs, mesh, mode, like=params_abs)
+        if kind == "train":
+            compiled = _reference_train(cfg, specs, params_abs, psh, mesh,
+                                        mode, B, S)
+            mem = compiled.memory_analysis()
+            out[repr((model, kind, B, S, shape, mode, over))] = (
+                summarize(compiled.as_text()).flops,
+                mem.argument_size_in_bytes + mem.temp_size_in_bytes)
+            continue
         cache = jax.eval_shape(lambda: lm.init_cache(cfg, B, S))
         csh = cache_shardings(cfg, cache, mesh)
         if kind == "prefill":
@@ -82,10 +106,53 @@ def _reference(cases) -> dict:
                 in_shardings=(psh, ash, csh), out_shardings=(None, csh),
             ).lower(params_abs, args, cache).compile()
         mem = compiled.memory_analysis()
-        out[repr((model, kind, B, S, shape, mode))] = (
+        out[repr((model, kind, B, S, shape, mode, over))] = (
             summarize(compiled.as_text()).flops,
             mem.argument_size_in_bytes + mem.temp_size_in_bytes)
     return out
+
+
+def _config(get, model: str, kind: str, over: dict):
+    """The smoke config of ``model`` by either package's ``get_config``,
+    with ``over``; bf16 parameters where it serves, as the dry-run
+    serves."""
+    cfg = get(ARCH[model], smoke=True).scaled(**over)
+    return cfg if kind == "train" else cfg.scaled(param_dtype="bfloat16")
+
+
+def _reference_train(cfg, specs, params_abs, psh, mesh, mode: str, B: int,
+                     S: int):
+    """The reference's train step (loss, gradients, AdamW) compiled as its
+    dry-run compiles a train cell of one microbatch: parameters,
+    optimizer state and batch by its layouts, the gradients pinned to
+    the parameters'."""
+    import jax
+    import jax.numpy as jnp
+    from repro.distributed.sharding import (activation_sharding_ctx,
+                                             shardings_for)
+    from repro.models import lm
+    from repro.optim.adamw import (OptConfig, apply_updates, init_opt_state,
+                                   opt_state_specs)
+    from repro.serving.engine import batch_shardings
+
+    oc = OptConfig()
+    opt_abs = jax.eval_shape(lambda p: init_opt_state(oc, p), params_abs)
+    osh = shardings_for(opt_state_specs(oc, specs), mesh, mode, like=opt_abs)
+    batch = {k: jax.ShapeDtypeStruct((B, S), jnp.int32)
+             for k in ("tokens", "labels")}
+    bsh = batch_shardings(mesh, batch)
+
+    def step(params, opt, b):
+        loss, grads = jax.value_and_grad(
+            lambda p: lm.loss_fn(cfg, p, b)[0])(params)
+        grads = jax.tree.map(jax.lax.with_sharding_constraint, grads, psh)
+        new_p, new_o, gn = apply_updates(oc, params, grads, opt)
+        return new_p, new_o, {"loss": loss, "grad_norm": gn}
+
+    with mesh, activation_sharding_ctx(mesh, mode):
+        return jax.jit(step, in_shardings=(psh, osh, bsh),
+                       out_shardings=(psh, osh, None)).lower(
+            params_abs, opt_abs, batch).compile()
 
 
 @pytest.fixture(scope="module")
@@ -98,8 +165,8 @@ def reference():
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
-def _port(model, kind, B, S, shape, mode, by_op=False) -> dict:
-    cfg = get_config(ARCH[model], smoke=True).scaled(param_dtype="bfloat16")
+def _port(model, kind, B, S, shape, mode, over=None, by_op=False) -> dict:
+    cfg = _config(get_config, model, kind, over or {})
     return dryrun.trace_step(cfg, dryrun.Cell(kind, B, S), "cpu",
                              mesh=Mesh(("data", "model"), shape), mode=mode,
                              by_op=by_op)
