@@ -132,7 +132,7 @@ Phases (each prints its own lines; any failure exits nonzero):
      slots of the ring, or its rows of every q chunk), each through
      ``roofline.analyze_cell``: no error, 256 or 512 devices, collective
      bytes above 0, the collective term beside compute and memory; the
-     last five but long_500k held against the reference's own compile
+     last five held against the reference's own compile
      (``MESH_REFERENCE``: FLOPs within 0.8-1.25x, peak at most 2.0x)
      (timed as its own phase, "8e", the wait that is left, and by its
      children's wall from their start).  The eleven tracing children trace
@@ -1847,16 +1847,10 @@ MESH_REFERENCE = {
     ("recurrentgemma-2b", "prefill_32k", "pod"): (33738478059520.0,
                                                   7168983388),
     ("recurrentgemma-2b", "decode_32k", "pod"): (2944061440.0, 432130420),
+    ("recurrentgemma-2b", "long_500k", "pod"): (102586880.0, 156925400),
     ("recurrentgemma-2b", "train_4k", "pod"): (90177536000000.0,
                                                25713649428),
 }
-# recurrentgemma-2b's long_500k on pod is traced and not held: with its
-# keys split the port's rank reads 0.58x the reference's 102586880 FLOPs
-# (peak 156925400 B), below MESH_FLOPS_BOUNDS, because the reference's
-# rank does more for a batch of one (its MLP's products keep d_model
-# whole where the port contracts 'embed' over 'data', and it attends 5
-# heads over 4 chunks of its 128 slots where the port attends 10 over
-# its 128 once)
 MESH_FLOPS_BOUNDS = (0.8, 1.25)
 MESH_PEAK_BOUND = 2.0
 
@@ -2232,6 +2226,14 @@ WIDE_RUNS = (("tp", 4), ("tp_fsdp", 2))  # (mode, 'model'); baseline first
 WIDE_MOE_LAYERS = 4
 WIDE_MOE_RUNS = (("tp", 4), ("tp_ep", 2))
 WIDE_CARDS = 4
+# the serves across cards that two layouts hold against each other (the
+# MoE's and llava-next-34b's, WIDE_MOE_RUNS and WIDE_RUNS, baseline
+# first), each from one draw in f32 and then in bf16: f32 must give every
+# first token of the baseline; in bf16 a first token may part only where
+# the baseline's top-1 minus top-2 logit gap is within twice the two
+# layouts' max |diff| of that sequence's first logits (the least change
+# that can flip it)
+SERVE_DTYPES = ("float32", "bfloat16")
 WIDE_TIMEOUT_S = 900  # each wide child: every rank draws the whole model
 
 
@@ -2477,11 +2479,13 @@ def moe_child(mode: str, layers: int, mp: int, path: str) -> None:
     phi3.5-moe at full width and ``layers`` layers, bf16 with f32 master
     weights and remat as ``launch.train`` runs it, through the library:
     the parameters and optimizer state from ``init_sharded`` over the
-    (data, model) mesh of the ranks with 'model' = ``mp``; a greedy serve
-    of 8 x 1024 + 32 from the drawn weights cast once to bf16, then 3
-    train steps of 8 x 1024.  ``mode`` "all", on one rank: ``MOE_MODES``
-    on the 1x1 mesh and one device, the model drawn once (``moe_all``).
-    Rank 0 writes the report (for "all", the reports by mode) to
+    (data, model) mesh of the ranks with 'model' = ``mp``; for each of
+    ``SERVE_DTYPES`` (the drawn f32 weights, then cast once to bf16) a
+    greedy serve of 8 x 1024 + 32, whose first logits rank 0 writes
+    beside ``path`` (``moe_run``'s ``first``), then 3 train steps of
+    8 x 1024.  ``mode`` "all", on one rank: ``MOE_MODES`` on the 1x1 mesh
+    and one device, the model drawn once (``moe_all``), served in bf16
+    alone.  Rank 0 writes the report (for "all", the reports by mode) to
     ``path``."""
     cfg = get_config(MOE_ARCH).scaled(n_layers=layers)
     dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
@@ -2497,7 +2501,7 @@ def moe_child(mode: str, layers: int, mp: int, path: str) -> None:
             cfg, d, dmesh, mesh.shape)))
     else:
         run_launched(mp, dev, lambda d, mesh, dmesh: write(moe_run(
-            cfg, d, dmesh, mode, mesh.shape)[0]))
+            cfg, d, dmesh, mode, mesh.shape, first=path)[0]))
 
 
 def moe_all(cfg, dev, dmesh, mesh_shape) -> dict:
@@ -2518,10 +2522,15 @@ def moe_all(cfg, dev, dmesh, mesh_shape) -> dict:
     return reps
 
 
-def moe_run(cfg, dev, dmesh, mode, mesh_shape=None, start=None) -> tuple:
+def moe_run(cfg, dev, dmesh, mode, mesh_shape=None, start=None,
+            first=None) -> tuple:
     """One MoE run; its weights drawn (``init``, or ``init_sharded`` over
     ``dmesh``), or copied from ``start`` (whole leaves in host memory).
-    Returns (the report, a host copy of the drawn weights or None)."""
+    Served in bf16 (the weights cast once); with ``first`` (a path), in
+    each of ``SERVE_DTYPES``, one prefill's first logits written by rank 0
+    to ``first.<dtype>.npy`` and the serve's report under its dtype, the
+    bf16 one's also at the top.  Returns (the report, a host copy of the
+    drawn weights or None)."""
     B, S = TRAIN[:2]
     SB, P, G = SERVE
     oc = OptConfig(decay_steps=10)  # launch.train's, for a short run
@@ -2543,10 +2552,26 @@ def moe_run(cfg, dev, dmesh, mode, mesh_shape=None, start=None) -> tuple:
             "cpu", copy=True), params)
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
-    served = cast_for_compute(cfg, params)
-    tokens, stats = serve.generate(cfg, served, serve.make_batch(
-        cfg, SB, P, dev), G, dmesh, mode or "tp")
-    del served
+    served_by = {}
+    for dt in SERVE_DTYPES if first else (None,):
+        c = cfg if dt is None else cfg.scaled(dtype=dt)
+        served = cast_for_compute(c, params)  # f32 keeps the leaves
+        batch = serve.make_batch(c, SB, P, dev)
+        if first:
+            prefill_step, _ = make_serve_steps(c, dmesh, mode)
+            logits, _ = prefill_step(served, batch, place_cache(
+                c, lm.init_cache(c, SB, P + G, dev), dmesh))
+            if is_main():
+                np.save(f"{first}.{dt}.npy", logits.float().cpu().numpy())
+            del logits
+        tokens, stats = serve.generate(c, served, batch, G, dmesh,
+                                       mode or "tp")
+        del served
+        served_by[dt] = {"tokens": tokens.tolist(),
+                         "prefill_ms": stats["prefill_ms"],
+                         "decode_ms_per_step": stats["decode_ms_per_step"],
+                         "peak_bytes_per_rank": per_rank(
+                             stats["peak_bytes"])}
     step = make_train_step(cfg, oc, mesh=dmesh, mode=mode or "tp")
     data = SyntheticTokens(DataConfig(global_batch=B, seq_len=S,
                                       vocab=cfg.vocab))
@@ -2562,11 +2587,13 @@ def moe_run(cfg, dev, dmesh, mode, mesh_shape=None, start=None) -> tuple:
     peaks = per_rank(torch.cuda.max_memory_allocated(dev))
     del params, opt, step
     torch.cuda.empty_cache()
+    bf16 = served_by[SERVE_DTYPES[-1] if first else None]
     return {"arch": cfg.name, "layers": cfg.n_layers, "mode": mode,
             "mesh": mesh_shape if dmesh is not None else None,
             "init_s": init_s, "drawn": start is None,
-            "tokens": tokens.tolist(), "prefill_ms": stats["prefill_ms"],
-            "decode_ms_per_step": stats["decode_ms_per_step"],
+            "tokens": bf16["tokens"], "prefill_ms": bf16["prefill_ms"],
+            "decode_ms_per_step": bf16["decode_ms_per_step"],
+            **({dt: served_by[dt] for dt in SERVE_DTYPES} if first else {}),
             "step_ms": times, "step_ms_median": statistics.median(times[1:]),
             "loss": losses, "grad_norm": gnorms,
             "peak_bytes_per_rank": peaks}, kept
@@ -2592,8 +2619,9 @@ def moe_label(layers: int, mode: str, nproc: int, mp: int) -> str:
 def moe_runs(tmp: str, layers: int, runs, nproc: int) -> list:
     """The ``--moe`` children of ``runs`` ((mode, 'model') pairs, the
     first the baseline) over ``nproc`` ranks, each held against the
-    first."""
-    reps = []
+    first: training by ``held_train``, the serves in f32 and bf16 by
+    ``held_first_tokens``."""
+    reps, logits = [], []
     for mode, mp in runs:
         path = os.path.join(tmp, f"moe_{layers}_{mode}_{mp}.json")
         label = moe_label(layers, mode, nproc, mp)
@@ -2602,14 +2630,24 @@ def moe_runs(tmp: str, layers: int, runs, nproc: int) -> list:
                       WIDE_TIMEOUT_S)
         if r is None:
             return reps
+        logits.append(first_logits(path))
         if not reps:
             print(f"  {label}: init {r['init_s']:.1f} s, peak per rank "
                   f"{gib(r['peak_bytes_per_rank'])} GiB, steps "
                   f"{r['step_ms']} ms")
             reps.append({"base": r})
             continue
+        base = reps[0]["base"]
         held = f"{runs[0][0]}, model={runs[0][1]}"
-        reps.append({**moe_held(label, r, reps[0]["base"], held),
+        how = "drawn" if r["drawn"] else "copied"
+        print(f"  {label}: init {r['init_s']:.1f} s ({how}), peak per rank "
+              f"{gib(r['peak_bytes_per_rank'])} GiB, steps {r['step_ms']} "
+              f"ms")
+        reps.append({"train": held_train(label, r, base, held),
+                     "serve": held_first_tokens(
+                         f"{MOE_ARCH} at {layers} layers", [base, r],
+                         [logits[0], logits[-1]]),
+                     "init_s": r["init_s"], "drawn": r["drawn"],
                      "child_s": r["child_s"]})
     return reps
 
@@ -2918,19 +2956,11 @@ def wide_pair(tmp: str, run, arch: str, runs, rep: list) -> None:
                    else held_serve(label, r, base, held, False))
 
 
-# llava-next-34b's two layouts (WIDE_RUNS, baseline first), each served
-# from one draw in f32 and then in bf16: f32 must give every first token of
-# the baseline; in bf16 a first token may part only where the baseline's
-# top-1 minus top-2 logit gap is within twice the two layouts' max |diff|
-# of that sequence's first logits (the least change that can flip it)
-VLM_DTYPES = ("float32", "bfloat16")
-
-
 def vlm_child(mode: str, mp: int, path: str) -> None:
     """``--vlm MODE MP PATH``, in the ranks of a ``torch.distributed.run``
     launch: ``WIDE_VLM`` at full width and depth drawn once by
     ``init_sharded`` over the (data, model) mesh with 'model' = ``mp``,
-    then for each of ``VLM_DTYPES`` (f32 first, as drawn; then cast to
+    then for each of ``SERVE_DTYPES`` (f32 first, as drawn; then cast to
     bf16 and the f32 copy freed) one prefill of ``launch.serve``'s prompts
     (``SERVE``) whose first logits rank 0 writes to ``PATH.<dtype>.npy``,
     and the greedy serve of ``launch.serve``.  Rank 0 writes the report
@@ -2944,7 +2974,7 @@ def vlm_child(mode: str, mp: int, path: str) -> None:
         params = init_sharded(cfg, None, dmesh, mode, device=d)[0]
         rep = {"mesh": mesh.shape, "mode": mode, "draw_s":
                time.perf_counter() - t0}
-        for dt in VLM_DTYPES:
+        for dt in SERVE_DTYPES:
             c = cfg.scaled(dtype=dt)
             params = cast_for_compute(c, params)  # f32 keeps the leaves
             torch.cuda.empty_cache()
@@ -2971,11 +3001,7 @@ def vlm_child(mode: str, mp: int, path: str) -> None:
 
 def vlm_layouts(tmp: str) -> dict:
     """``WIDE_VLM`` served in each layout of ``WIDE_RUNS`` (one child
-    each, ``--vlm``), held against the first: per dtype the share of
-    equal tokens, and per sequence whether the first token parts, the two
-    layouts' max |diff| of the first logits and the baseline's top-1
-    minus top-2 gap.  f32: every first token equal; bf16: a first token
-    parts only where the gap is at most twice the max |diff|."""
+    each, ``--vlm``), held against the first (``held_first_tokens``)."""
     reps, logits = [], []
     for mode, mp in WIDE_RUNS:
         path = os.path.join(tmp, f"vlm_{mode}_{mp}.json")
@@ -2987,10 +3013,27 @@ def vlm_layouts(tmp: str) -> dict:
         if r is None:
             return {"runs": reps}
         reps.append(r)
-        logits.append({dt: np.load(f"{path}.{dt}.npy") for dt in VLM_DTYPES})
+        logits.append(first_logits(path))
+    return {"runs": reps, **held_first_tokens(WIDE_VLM, reps, logits)}
+
+
+def first_logits(path: str) -> dict:
+    """The first logits that a child's rank 0 wrote beside ``path``, by
+    dtype."""
+    return {dt: np.load(f"{path}.{dt}.npy") for dt in SERVE_DTYPES}
+
+
+def held_first_tokens(name: str, reps: list, logits: list) -> dict:
+    """Two layouts' serves of ``name`` (``reps``, the baseline first, each
+    with a report per dtype of ``SERVE_DTYPES``; their first logits in
+    ``logits``) held by the rule that settled C9: per dtype the share of
+    equal tokens, and per sequence whether the first token parts, the two
+    layouts' max |diff| of the first logits and the baseline's top-1
+    minus top-2 gap.  f32: every first token equal; bf16: a first token
+    parts only where the gap is at most twice the max |diff|."""
     base, other = reps
-    out = {"runs": reps}
-    for dt in VLM_DTYPES:
+    out = {}
+    for dt in SERVE_DTYPES:
         want, got = (torch.tensor(r[dt]["tokens"]) for r in reps)
         lb, lo = (torch.from_numpy(x[dt]) for x in logits)
         diff = (lb - lo).abs().amax(-1)
@@ -3008,7 +3051,7 @@ def vlm_layouts(tmp: str) -> dict:
                  "peak_bytes_per_rank": [r[dt]["peak_bytes_per_rank"]
                                          for r in reps]}
         out[dt] = stats
-        label = (f"{WIDE_VLM} {dt}, mesh {other['mesh']} --mode "
+        label = (f"{name} {dt}, mesh {other['mesh']} --mode "
                  f"{other['mode']} against {base['mesh']} --mode "
                  f"{base['mode']}")
         detail = (f"{stats['tokens_equal_share']:.4f} of tokens equal, "

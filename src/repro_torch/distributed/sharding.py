@@ -327,6 +327,28 @@ def pinned(x):
     return x
 
 
+def whole_along(w, dim: int, rows=None):
+    """The weight ``w`` with its dim ``dim`` gathered on every mesh dim
+    that splits it, or, given the activations ``rows`` (B, ...), on those
+    that split their rows too.  Under ``tp_fsdp`` a weight whose stack
+    keeps its layers whole (or that has none) splits 'embed' over 'data',
+    as the batch is; the reference's FSDP all-gathers it before a product
+    with rows split over 'data', so each rank forms its own rows with the
+    whole d and no rank sums partial products of every row.  Rows that
+    'data' does not split (a batch of one) contract the split instead.
+    The gradient comes back reduced onto the shard.  A plain tensor, or
+    a dim no mesh dim splits (every weight on a 1x1 mesh), is ``w``
+    itself."""
+    from torch.distributed.tensor import Replicate
+
+    if not is_dtensor(w):
+        return w
+    gather = ([p.is_shard(0) for p in rows.placements] if is_dtensor(rows)
+              else [rows is None] * len(w.placements))
+    return _moved(w, tuple(Replicate() if p.is_shard(dim) and g else p
+                           for p, g in zip(w.placements, gather)))
+
+
 def constrain(x, spec: Spec):
     """``with_sharding_constraint`` by logical axis names: a DTensor inside
     ``activation_sharding_ctx`` is redistributed to the spec, each mapping

@@ -462,14 +462,23 @@ def _whole_seq(x):
     return constrain(x, ("batch", None, None))
 
 
+def _rows_weight(w, dim: int, dt, rows=None):
+    """The weight ``w`` for a product with the activations ``rows``, its
+    'embed' dim ``dim`` gathered (in the parameter's dtype) where
+    ``tp_fsdp`` splits it over the axis that splits the rows, or with no
+    ``rows`` wherever it is split (``sharding.whole_along``), cast to
+    ``dt``."""
+    return sharding.whole_along(w, dim, rows).to(dt)
+
+
 def _qkv(cfg, p: Params, x, src):
     B, S, _ = x.shape
     dt = cfg.torch_dtype
     x = _whole_seq(x)
     src = x if src is None else _whole_seq(src)
-    q = x @ p["wq"].to(dt)
-    k = src @ p["wk"].to(dt)
-    v = src @ p["wv"].to(dt)
+    q = x @ _rows_weight(p["wq"], 0, dt, x)
+    k = src @ _rows_weight(p["wk"], 0, dt, src)
+    v = src @ _rows_weight(p["wv"], 0, dt, src)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -533,9 +542,10 @@ def _out_proj(out, wo, dt):
     sequence.  Where a gradient flows and ``out`` is whole along the
     merged heads, each rank takes its own rows of ``wo`` first
     (``sharding.split_as_rows_of``), so it forms only those rows' weight
-    gradient."""
+    gradient; its 'embed' is gathered first (``_rows_weight``)."""
+    wo = _rows_weight(wo, 1, dt, out)
     out = sharding.split_as_rows_of(out, wo)
-    return constrain(out @ wo.to(dt), ("batch", None, None))
+    return constrain(out @ wo, ("batch", None, None))
 
 
 def attention_block(cfg, p: Params, x, positions, *, cache=None,
@@ -602,7 +612,8 @@ def cross_attention_cached(cfg, p: Params, x, ck, cv):
     """Cross-attention against precomputed (cached) memory K/V."""
     B, S, _ = x.shape
     dt = cfg.torch_dtype
-    q = _whole_seq(x) @ p["wq"].to(dt)
+    x = _whole_seq(x)
+    q = x @ _rows_weight(p["wq"], 0, dt, x)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
     q = sharding.splittable(q, -1, cfg.n_heads)
@@ -618,8 +629,8 @@ def cross_kv(cfg, p: Params, memory):
     dt = cfg.torch_dtype
     B, Sm, _ = memory.shape
     memory = _whole_seq(memory)
-    k = memory @ p["wk"].to(dt)
-    v = memory @ p["wv"].to(dt)
+    k = memory @ _rows_weight(p["wk"], 0, dt, memory)
+    v = memory @ _rows_weight(p["wv"], 0, dt, memory)
     if cfg.qkv_bias:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
@@ -644,11 +655,19 @@ def mlp_params(cfg, gen: torch.Generator) -> Params:
 
 
 def mlp(cfg, p: Params, x):
+    """SwiGLU.  Under ``tp_fsdp`` the weights' 'embed' (split over 'data'
+    where the stack keeps its layers whole) is laid out as the reference's
+    compile lays it out: gathered for rows that 'data' splits, and for
+    ``wd`` always, since its output is constrained whole along d (for a
+    batch of one, ``wg`` and ``wu`` contract their split instead)."""
     dt = cfg.torch_dtype
     x = _whole_seq(x)
-    g = F.silu(constrain(x @ p["wg"].to(dt), ("batch", None, "mlp")))
-    u = constrain(x @ p["wu"].to(dt), ("batch", None, "mlp"))
-    return constrain((g * u) @ p["wd"].to(dt), ("batch", None, None))
+    g = F.silu(constrain(x @ _rows_weight(p["wg"], 0, dt, x),
+                         ("batch", None, "mlp")))
+    u = constrain(x @ _rows_weight(p["wu"], 0, dt, x),
+                  ("batch", None, "mlp"))
+    return constrain((g * u) @ _rows_weight(p["wd"], 1, dt),
+                     ("batch", None, None))
 
 
 def moe_params(cfg, gen: torch.Generator) -> Params:

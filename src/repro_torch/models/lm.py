@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..distributed.sharding import (P, constrain, gather_last, is_dtensor,
                                     layer, map_specs, redistribute,
-                                    split_like)
+                                    split_like, whole_along)
 from .config import ModelConfig
 from .layers import (_init, _whole_seq, attention_block, attention_params,
                      cross_attention_cached, cross_kv, embedding_params, mlp,
@@ -431,11 +431,18 @@ def _embed(cfg, params, tokens):
 
 
 def _rows_beside(x, w, dim: int):
-    """The DTensor ``x`` (B, S, d) laid out for a product with ``w``,
-    whose dim ``dim`` ('embed') is split: its d split as that dim is, and
-    its rows over every other mesh dim, major to minor, as far as they
-    divide B (the reference's GSPMD layout of the head's product when the
-    vocabulary is whole on every rank)."""
+    """``x`` (B, S, d) and ``w`` laid out for the product ``x @ w``, where
+    ``w``'s dim ``dim`` ('embed') is split and its vocabulary whole.  Where
+    another mesh dim can take the rows: ``x``'s d split as that dim is,
+    and its rows over every other mesh dim, major to minor, as far as
+    they divide B, so each rank contracts its slice of 'embed' (the
+    reference's GSPMD layout of the head's product for a vocabulary the
+    'model' extent does not divide).  Where none can and ``x``'s batch is
+    split over an axis that splits 'embed' (a 'model' of extent 1): ``x``
+    as it is and ``w`` with its 'embed' gathered, so each rank forms its
+    own rows' logits with the whole d, as the reference's FSDP gathers
+    the head.  A batch that no axis splits (a batch of one) keeps the
+    contraction."""
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     emb = tuple(a for a, p in zip(names, w.placements) if p.is_shard(dim))
@@ -444,30 +451,34 @@ def _rows_beside(x, w, dim: int):
     while rows and x.shape[0] % math.prod(mesh.size(names.index(a))
                                           for a in rows):
         rows.pop()
+    if not rows and any(a.is_shard(dim) and b.is_shard(0)
+                        for a, b in zip(w.placements, x.placements)):
+        return x, whole_along(w, dim)
     return redistribute(x, P(tuple(rows) or None, None,
-                             emb if len(emb) > 1 else emb[0]))
+                             emb if len(emb) > 1 else emb[0])), w
 
 
 def _head(cfg, params, x):
     # the norm is gathered whole along 'embed' (split over 'data' under
     # ``tp_fsdp``), and the head too where the batch keeps 'data' and the
-    # vocabulary is split (``_for_batch``); a vocabulary the 'model'
-    # extent does not divide stays whole on every rank, so the rows take
-    # its axis where they divide and each rank contracts its slice of
-    # 'embed', as the reference's GSPMD lays them out; the f32 logits keep
-    # their split
+    # vocabulary is split (``_for_batch``), or where the vocabulary is
+    # whole and no other mesh dim can take the rows (``_rows_beside``); a
+    # vocabulary the 'model' extent does not divide stays whole on every
+    # rank, so the rows take its axis where they divide and each rank
+    # contracts its slice of 'embed', as the reference's GSPMD lays them
+    # out; the f32 logits keep their split
     norm = {"scale": constrain(params["final_norm"]["scale"], (None,))}
     x = _whole_seq(rmsnorm(norm, x, cfg.norm_eps))
-    w, vdim = ((params["embed"]["tok"], 0) if cfg.tie_embeddings
-               else (params["lm_head"], 1))
-    if _split(w, 1 - vdim) and not _split(w, vdim):
-        x = _rows_beside(x, w, 1 - vdim)
     if cfg.tie_embeddings:
-        w = _table(params, x).to(cfg.torch_dtype).T
+        w, vdim = _table(params, x), 0
     else:
-        w = _for_batch(w, 0, x, ("embed", "vocab"),
-                       (None, "vocab")).to(cfg.torch_dtype)
-    return constrain((x @ w).float(), ("batch", "act_seq", "vocab"))
+        w, vdim = _for_batch(params["lm_head"], 0, x, ("embed", "vocab"),
+                             (None, "vocab")), 1
+    if _split(w, 1 - vdim) and not _split(w, vdim):
+        x, w = _rows_beside(x, w, 1 - vdim)
+    w = w.to(cfg.torch_dtype)
+    return constrain((x @ (w.T if cfg.tie_embeddings else w)).float(),
+                     ("batch", "act_seq", "vocab"))
 
 
 def _frontend(cfg, params, feats):

@@ -60,7 +60,8 @@ MODES = ("tp", "dp", "tp_ep", "tp_fsdp")
 MODELS = {"hybrid": ("recurrentgemma-2b", {"n_layers": 14, "window": 8}),
           "vlm": ("llava-next-34b", {"n_layers": 4}),
           "ssm": ("mamba2-130m", {"n_layers": 4}),
-          "audio": ("seamless-m4t-medium", {})}
+          "audio": ("seamless-m4t-medium", {}),
+          "dense": ("qwen1.5-0.5b", {})}
 REF_MODES = {"hybrid": ("tp_fsdp",), "vlm": ("tp_fsdp",),
              "ssm": ("dp", "tp_fsdp"), "audio": ("dp", "tp_fsdp")}
 ALL_MODES_ON = (2, 2)
@@ -96,12 +97,12 @@ def ckpt_mode(model: str) -> str:
 
 def cfg_of(model: str, **kw):
     """The port's config of ``model`` (the reference's is the same
-    ``ModelConfig`` fields)."""
+    ``ModelConfig`` fields), in f32 unless ``kw`` names a dtype."""
     from repro_torch.configs import get_config
 
     arch, over = MODELS[model]
-    return get_config(arch, smoke=True).scaled(dtype="float32",
-                                               **{**over, **kw})
+    return get_config(arch, smoke=True).scaled(
+        **{"dtype": "float32", **over, **kw})
 
 
 def refused(model: str, shape, mode: str) -> bool:
@@ -509,12 +510,13 @@ def greedy(cfg, params, mesh, mode):
             _port_cache_shapes(cache))
 
 
-def train(cfg, params, opt, mesh, mode, steps=STEPS):
+def train(cfg, params, opt, mesh, mode, steps=STEPS, strict=True):
     from repro_torch.data import pipeline
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.training.step import make_train_step
 
-    step = make_train_step(cfg, OptConfig(**OPT), mesh=mesh, mode=mode)
+    step = make_train_step(cfg, OptConfig(**OPT), mesh=mesh, mode=mode,
+                           strict=strict)
     data = _data(cfg, pipeline)
     losses, gnorms = [], []
     for _ in range(steps):
@@ -740,17 +742,20 @@ def _ranks(world: int, out: Path, models):
 
 
 def serve_rows(cfg, params, mesh, mode: str, rows: int,
-               steps: int = DECODES, prompt: int = PROMPT):
+               steps: int = DECODES, prompt: int = PROMPT,
+               strict: bool = True):
     """``rows`` prompts (the first of ``_prompts``, their first ``prompt``
     tokens) prefilled and decoded greedily for ``steps`` tokens: the last
-    logits of each, as numpy."""
+    logits of each, as numpy.  ``strict`` as for ``check_sharded``: off,
+    a stack the data extent does not divide runs as the reference's
+    dry-run lays it out ('embed' over 'data')."""
     from repro_torch.models import lm
     from repro_torch.serving.engine import make_serve_steps, place_cache
 
     batch = {k: torch.from_numpy(v[:rows, :prompt] if k == "tokens"
                                  else v[:rows])
              for k, v in _prompts(cfg).items()}
-    prefill, decode = make_serve_steps(cfg, mesh, mode)
+    prefill, decode = make_serve_steps(cfg, mesh, mode, strict)
     cache = lm.init_cache(cfg, rows, _cache_len(cfg), "cpu")
     if mesh is not None:
         cache = place_cache(cfg, cache, mesh)
@@ -763,10 +768,11 @@ def serve_rows(cfg, params, mesh, mode: str, rows: int,
 
 
 def _layout_run(cfg, host, mesh, mode: str, rows: int,
-                serve=(PROMPT, DECODES)) -> dict:
+                serve=(PROMPT, DECODES), strict: bool = True) -> dict:
     """``serve_rows`` (prompts of ``serve[0]`` tokens, ``serve[1]`` decode
     steps) and one train step (loss, grad norm) of ``cfg`` from the
-    weights ``host``, over ``mesh`` in ``mode`` (None: one device)."""
+    weights ``host``, over ``mesh`` in ``mode`` (None: one device);
+    ``strict`` as for ``serve_rows``."""
     from repro_torch.distributed.sharding import distribute
     from repro_torch.models import lm
     from repro_torch.optim.adamw import (OptConfig, init_opt_state,
@@ -778,8 +784,9 @@ def _layout_run(cfg, host, mesh, mode: str, rows: int,
         opt = distribute(opt, opt_state_specs(oc, specs), mesh, mode)
         params = distribute(params, specs, mesh, mode)
     logits = serve_rows(cfg, params, mesh, mode, rows, steps=serve[1],
-                        prompt=serve[0])
-    _, _, losses, gnorms = train(cfg, params, opt, mesh, mode, steps=1)
+                        prompt=serve[0], strict=strict)
+    _, _, losses, gnorms = train(cfg, params, opt, mesh, mode, steps=1,
+                                 strict=strict)
     return {"logits": logits, "loss": np.asarray(losses),
             "grad_norm": np.asarray(gnorms)}
 
@@ -808,7 +815,7 @@ def attended(count: list):
 
 def layout_rank(rank: int, world: int, out: str, model: str, shape,
                 mode: str, rows: int, over: dict,
-                serve=(PROMPT, DECODES)) -> None:
+                serve=(PROMPT, DECODES), strict: bool = True) -> None:
     """One gloo rank of ``_layout_run`` over ``shape`` (data, model) from
     seeded weights; rank 0 writes the results, with the (row, head, key)
     triples its attention ran (``attended``)."""
@@ -828,16 +835,65 @@ def layout_rank(rank: int, world: int, out: str, model: str, shape,
         host = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
         count = [0]
         with attended(count):
-            got = _layout_run(cfg, host, mesh, mode, rows, serve)
+            got = _layout_run(cfg, host, mesh, mode, rows, serve, strict)
         if rank == 0:
             np.savez(out / "layout.npz", attended=np.asarray(count), **got)
     finally:
         dist.destroy_process_group()
 
 
+def modes_rank(rank: int, world: int, out: str, model: str, shape,
+               modes, rows: int, over: dict,
+               serve=(PROMPT, DECODES)) -> None:
+    """One gloo rank serving ``model`` (its smoke config with ``over``)
+    over ``shape`` in each of ``modes`` from the same seeded weights, cast
+    to the compute dtype once as ``launch.serve`` casts them, the dry-run's
+    layouts (``strict`` off); rank 0 writes each mode's last logits
+    (``serve_rows``) to ``modes.npz``."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.weights import cast_for_compute
+
+    torch.set_num_threads(1)
+    out = Path(out)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{out}/store_modes", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        cfg = cfg_of(model, **over)
+        mesh = device_mesh(Mesh(("data", "model"), tuple(shape)), "cpu")
+        host = cast_for_compute(cfg, lm.init(
+            cfg, torch.Generator().manual_seed(0), "cpu"))
+        got = {mode: serve_rows(cfg, distribute(host, lm.param_specs(cfg),
+                                                mesh, mode),
+                                mesh, mode, rows, steps=serve[1],
+                                prompt=serve[0], strict=False)
+               for mode in modes}
+        if rank == 0:
+            np.savez(out / "modes.npz", **got)
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_modes(tmp: Path, model: str, shape, modes, rows: int,
+                serve=(PROMPT, DECODES), **over) -> dict:
+    """``modes_rank`` on 4 gloo ranks: each mode's last logits, (steps + 1,
+    rows, vocab) f32."""
+    import torch.multiprocessing as mp
+
+    _join(mp.start_processes(modes_rank, args=(4, str(tmp), model, shape,
+                                               modes, rows, over, serve),
+                             nprocs=4, join=False, start_method="spawn"),
+          time.monotonic() + DEADLINE_S)
+    return _load(tmp / "modes.npz")
+
+
 def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
                  rows: int, serve=(PROMPT, DECODES), split: int = 0,
-                 **over) -> None:
+                 strict: bool = True, **over) -> None:
     """``model`` (its smoke config with ``over``) from ``lm.init``'s
     weights, served for ``rows`` prompts (``serve``: their length and
     the decode steps after them) and trained one step over ``shape`` in
@@ -845,7 +901,8 @@ def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
     equal the reference's on the same mesh (a subprocess of ``script``
     with 4 host devices, from the same weights) and one device's, within
     ``TOL``.  With ``split``, rank 0's attention ran exactly 1/``split``
-    of the (row, head, key) triples one device's ran (``attended``)."""
+    of the (row, head, key) triples one device's ran (``attended``).
+    ``strict`` as for ``serve_rows``."""
     import torch.multiprocessing as mp
     from repro_torch.models import lm
 
@@ -861,7 +918,7 @@ def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
     try:
         _join(mp.start_processes(layout_rank, args=(4, str(tmp), model,
                                                     shape, mode, rows, over,
-                                                    serve),
+                                                    serve, strict),
                                  nprocs=4, join=False, start_method="spawn"),
               deadline)
         alone = [0]

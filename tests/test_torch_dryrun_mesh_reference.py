@@ -9,7 +9,11 @@ them: ``tp_fsdp`` for the ssm's and the hybrid's serve cells, ``tp_ep``
 for the moe; and on (1, 4) in ``tp_fsdp``, heads that cannot go 1:1 to
 'model': the hybrid's decode and train step with 6 q heads and 1 kv
 head, and a train step of the dense yi-34b with 6 q and 2 kv heads (a kv
-head to 2 ranks).  The port's rank 0 is traced over a fake group of 4
+head to 2 ranks); and on (4, 1) in ``tp_fsdp`` the smoke dense
+qwen1.5-0.5b's prefill and decode, whose weights split 'embed' over
+'data' as the batch is: there the port's rank 0 also reduces nothing
+that the reference's compile does not (its collective bytes by kind).
+The port's rank 0 is traced over a fake group of 4
 (``launch.dryrun.trace_step``); the reference's step is jit'd as its
 dry-run compiles it (a train step: loss, gradients and AdamW), on 4 host
 devices in a subprocess (its ``launch/dryrun.py`` forces 512 on
@@ -17,7 +21,9 @@ import), and counted by ``repro.launch.hlo_parse.summarize`` and XLA's
 memory analysis.  Where a rank ran the whole recurrent block, or every
 q head of the attention, or every row of a q chunk, or every key of a
 decode step, or the whole batch's MoE routing, or the whole weight
-gradient of ``wo``, these cells fell outside the bounds.
+gradient of ``wo``, these cells fell outside the bounds; where a rank
+summed the partial products of every row of a split 'embed', it
+reduce-scattered what the reference never reduces.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ sys.path.insert(0, str(Path(__file__).parent))
 from dryrun_sweep_compare import FLOPS_BOUNDS, PEAK_BOUND  # noqa: E402
 
 ARCH = {"ssm": "mamba2-130m", "hybrid": "recurrentgemma-2b",
-        "moe": "phi3.5-moe-42b-a6.6b", "dense": "yi-34b"}
+        "moe": "phi3.5-moe-42b-a6.6b", "dense": "yi-34b",
+        "qwen": "qwen1.5-0.5b"}
 # where the heads cannot go 1:1 to 'model' (4): the hybrid's 6 q heads and
 # 1 kv head (its 10 and 1 over 16), the dense model's 6 and 2 (yi-34b's
 # 56 and 8: a kv head to 2 ranks, ``sharding.kv_group``)
@@ -55,13 +62,21 @@ CASES = [("ssm", "decode", 2, 64, (1, 4), "tp_fsdp", {}),
          ("hybrid", "decode", 2, 1024, (1, 4), "tp_fsdp",
           dict(UNSPLIT, window=1024)),
          ("hybrid", "train", 2, 256, (1, 4), "tp_fsdp", UNSPLIT),
-         ("dense", "train", 2, 512, (1, 4), "tp_fsdp", GROUPED)]
+         ("dense", "train", 2, 512, (1, 4), "tp_fsdp", GROUPED),
+         # 'embed' over 'data' as the batch is, 'model' of extent 1: each
+         # rank forms its own rows with every weight's 'embed' gathered
+         # (``sharding.whole_along``, ``lm._rows_beside``)
+         ("qwen", "prefill", 8, 64, (4, 1), "tp_fsdp", {}),
+         ("qwen", "decode", 8, 72, (4, 1), "tp_fsdp", {})]
+# the collectives that sum partial products
+SUMS = ("all-reduce", "reduce-scatter")
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def _reference(cases) -> dict:
-    """Each case's (dot FLOPs, argument + temp bytes) on the first device
-    of the reference's compile; run in a process of its own."""
+    """Each case's (dot FLOPs, argument + temp bytes, collective bytes by
+    kind) on the first device of the reference's compile; run in a
+    process of its own."""
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
                                " --xla_force_host_platform_device_count=4")
     import jax
@@ -85,10 +100,8 @@ def _reference(cases) -> dict:
         if kind == "train":
             compiled = _reference_train(cfg, specs, params_abs, psh, mesh,
                                         mode, B, S)
-            mem = compiled.memory_analysis()
-            out[repr((model, kind, B, S, shape, mode, over))] = (
-                summarize(compiled.as_text()).flops,
-                mem.argument_size_in_bytes + mem.temp_size_in_bytes)
+            out[repr((model, kind, B, S, shape, mode, over))] = _counts(
+                compiled, summarize)
             continue
         cache = jax.eval_shape(lambda: lm.init_cache(cfg, B, S))
         csh = cache_shardings(cfg, cache, mesh)
@@ -105,11 +118,16 @@ def _reference(cases) -> dict:
                 lambda p, a, c: step(cfg, p, a, c),
                 in_shardings=(psh, ash, csh), out_shardings=(None, csh),
             ).lower(params_abs, args, cache).compile()
-        mem = compiled.memory_analysis()
-        out[repr((model, kind, B, S, shape, mode, over))] = (
-            summarize(compiled.as_text()).flops,
-            mem.argument_size_in_bytes + mem.temp_size_in_bytes)
+        out[repr((model, kind, B, S, shape, mode, over))] = _counts(
+            compiled, summarize)
     return out
+
+
+def _counts(compiled, summarize) -> tuple:
+    mem = compiled.memory_analysis()
+    hlo = summarize(compiled.as_text())
+    return (hlo.flops, mem.argument_size_in_bytes + mem.temp_size_in_bytes,
+            hlo.collective_bytes)
 
 
 def _config(get, model: str, kind: str, over: dict):
@@ -172,17 +190,42 @@ def _port(model, kind, B, S, shape, mode, over=None, by_op=False) -> dict:
                              by_op=by_op)
 
 
+def _of(reference, case):
+    return reference[repr(tuple(tuple(x) if isinstance(x, list) else x
+                                for x in case))]
+
+
 @pytest.mark.parametrize("case", CASES,
                          ids=["-".join(map(str, c[:2] + c[4:5])) + f"-{c[5]}"
                               for c in CASES])
 def test_rank0_is_held_against_the_reference_compile(reference, case):
-    ref_flops, ref_peak = reference[repr(tuple(
-        tuple(x) if isinstance(x, list) else x for x in case))]
+    ref_flops, ref_peak, _ = _of(reference, case)
     res = _port(*case)
     flops = res["hlo"]["per_device_flops"] / ref_flops
     peak = res["memory_per_device"]["peak_live_bytes"] / ref_peak
     assert FLOPS_BOUNDS[0] <= flops <= FLOPS_BOUNDS[1], (flops, peak)
     assert peak <= PEAK_BOUND, (flops, peak)
+
+
+FSDP_ROWS = [c for c in CASES if c[0] == "qwen"]
+
+
+@pytest.mark.parametrize("case", FSDP_ROWS,
+                         ids=[f"{c[1]}-{c[4][0]}x{c[4][1]}-{c[5]}"
+                              for c in FSDP_ROWS])
+def test_rank0_sums_no_partial_products_the_reference_does_not(reference,
+                                                                case):
+    """Over (4, 1) in ``tp_fsdp`` the reference's compile all-gathers
+    every weight's 'embed', the head's too, and each rank forms its own
+    rows with the whole d: it reduces nothing.  So the port's rank 0
+    reduce-scatters or all-reduces nothing either, where it once summed
+    the partial products of every row of the MLP's and the head's split
+    'embed' (the head, 8 x 512 f32, in every serve step)."""
+    ref = _of(reference, case)[2]
+    coll = _port(*case)["hlo"]["collective_bytes"]
+    for kind in SUMS:
+        if not ref.get(kind):
+            assert not coll.get(kind), (kind, coll, ref)
 
 
 def test_moe_rank_routes_its_rows_only():
