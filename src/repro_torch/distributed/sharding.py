@@ -416,9 +416,10 @@ def attention_pspecs(q_shape, kv_shape) -> Tuple[PartitionSpec,
     return q, kv
 
 
-def _heads_dims(dmesh, mode: str) -> Tuple[int, ...]:
-    """The mesh dims that the mode's 'heads' rule maps to."""
-    axes = spec_to_pspec(("heads",), RULES[mode], as_mesh(dmesh))[0]
+def _rule_dims(dmesh, mode: str, name: str) -> Tuple[int, ...]:
+    """The mesh dims that the mode's rule for the logical axis ``name``
+    maps to."""
+    axes = spec_to_pspec((name,), RULES[mode], as_mesh(dmesh))[0]
     if axes is None:
         return ()
     axes = axes if isinstance(axes, tuple) else (axes,)
@@ -442,7 +443,7 @@ def kv_group(q_shape, kv_shape) -> Optional[Tuple]:
     c = 2 is taken: the two halves a head's output is summed from add up
     to it exactly, where more shares could round in the all-reduce."""
     dmesh, mode = active()
-    dims = _heads_dims(dmesh, mode)
+    dims = _rule_dims(dmesh, mode, "heads")
     n = math.prod(dmesh.size(d) for d in dims)
     hq, hkv = q_shape[2], kv_shape[2]
     if not dims or hq % n == 0 or hkv < 2 or n != 2 * hkv:
@@ -457,7 +458,8 @@ def heads_split() -> Tuple[Tuple[int, ...], int, int]:
     heads cannot go to those ranks, the attention splits its rows or its
     keys over them instead (``models.layers._attend``)."""
     dmesh, mode = active()
-    dims = tuple(d for d in _heads_dims(dmesh, mode) if dmesh.size(d) > 1)
+    dims = tuple(d for d in _rule_dims(dmesh, mode, "heads")
+                 if dmesh.size(d) > 1)
     return (dims, math.prod(dmesh.size(d) for d in dims),
             _flat_coord(dmesh, dims))
 

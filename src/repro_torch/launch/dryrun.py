@@ -60,6 +60,11 @@ it; one device moves no collective bytes.  The ``hlo`` block holds the
 traced counts under the reference's names; ``ops`` and ``trace_s`` take
 the place of ``hlo_chars`` and ``parse_s``.  On one device the JSON's
 ``mode`` is recorded only: one device shards nothing.
+
+``--as-reference`` traces the cell as the reference's compiled step
+computes it (``as_reference``): the attention's masked kv blocks too,
+and a prefill's logits at every position.  Its FLOPs are then comparable
+with the reference's; its peak is not the port's.
 """
 from __future__ import annotations
 
@@ -579,9 +584,91 @@ BY_OP_KEPT = 40
 MESHES = {"pod": ("pod_16x16", False), "multipod": ("multipod_2x16x16", True)}
 
 
+def _masked(cfgt, qi: int, nk: int) -> List[int]:
+    """The first keys of the kv blocks that q chunk ``qi`` of a chunked
+    attention (``layers._Cfg`` ``cfgt``, ``nk`` blocks) skips."""
+    from ..models import layers
+
+    causal, window, q_chunk, kv_chunk, q_offset, kv_valid, q_step, k0 = cfgt
+    q_lo = q_offset + qi * q_step
+    return [ci * kv_chunk for ci in range(nk) if layers._chunk_masked(
+        causal, window, q_lo, q_lo + q_chunk - 1, k0 + ci * kv_chunk,
+        k0 + ci * kv_chunk + kv_chunk - 1, kv_valid)]
+
+
+@contextlib.contextmanager
+def as_reference():
+    """Inside, the model also computes what the reference's compiled step
+    computes where the port skips work: the attention's matrix products
+    over every kv block, the masked ones too (the port skips a block no
+    query of which sees a key, ``layers._chunk_masked``), and a prefill's
+    head on every position before the last is kept (the port's runs on
+    the last only).  The values do not change: a skipped block's products
+    are formed and dropped (they would add p = 0), so a trace inside
+    counts the FLOPs the reference's dry-run counts for its own step.
+    (Only its matrix products carry FLOPs, so a skipped block runs those
+    alone: a 32k prefill's every block at full softmax cost is 2 M traced
+    ops, ~430 s on a host core.)"""
+    from ..models import layers
+
+    full = {}
+    trunk, head = lm._trunk, lm._head
+    online, backward = layers._chunk_online, layers._flash_bwd
+
+    def trunk_kept(*a, **k):
+        out = trunk(*a, **k)
+        full["x"] = out[0]
+        return out
+
+    def head_all(cfg, params, x):
+        whole = full.pop("x", None)
+        if whole is not None and x.shape[1] == 1 < whole.shape[1]:
+            return head(cfg, params, whole)[:, -1:]
+        return head(cfg, params, x)
+
+    def online_all(q, k, v, cfgt, qi, scale):
+        qc, kc = cfgt.q_chunk, cfgt.kv_chunk
+        masked = _masked(cfgt, qi, k.shape[1] // kc)
+        if masked:
+            # the block's S = Q K^T and P V as two batched products over
+            # (batch x kv head), the FLOPs of ``_chunk_online``'s einsums
+            B, _, Hkv, rep, Dh = q.shape
+            qb = q[:, qi * qc:(qi + 1) * qc].permute(0, 2, 3, 1, 4).reshape(
+                B * Hkv, rep * qc, Dh)
+            kt = k.permute(0, 2, 3, 1).reshape(B * Hkv, Dh, -1)
+            vt = v.permute(0, 2, 1, 3).reshape(B * Hkv, -1, Dh)
+            for lo in masked:
+                torch.bmm(torch.bmm(qb, kt[:, :, lo:lo + kc]),
+                          vt[:, lo:lo + kc])
+        return online(q, k, v, cfgt, qi, scale)
+
+    def backward_all(q, k, v, out, lse, dout, cfgt):
+        qc, kc = cfgt.q_chunk, cfgt.kv_chunk
+        for qi in range(q.shape[1] // qc):
+            rows = slice(qi * qc, (qi + 1) * qc)
+            qb, dob = q[:, rows], dout[:, rows]
+            for lo in _masked(cfgt, qi, k.shape[1] // kc):
+                kb, vb = k[:, lo:lo + kc], v[:, lo:lo + kc]
+                p = torch.einsum("bqgrd,bkgd->bgrqk", qb, kb)
+                torch.einsum("bgrqk,bqgrd->bkgd", p, dob)
+                torch.einsum("bqgrd,bkgd->bgrqk", dob, vb)
+                torch.einsum("bgrqk,bkgd->bqgrd", p, kb)
+                torch.einsum("bgrqk,bqgrd->bkgd", p, qb)
+        return backward(q, k, v, out, lse, dout, cfgt)
+
+    lm._trunk, lm._head = trunk_kept, head_all
+    layers._chunk_online, layers._flash_bwd = online_all, backward_all
+    try:
+        yield
+    finally:
+        lm._trunk, lm._head = trunk, head
+        layers._chunk_online, layers._flash_bwd = online, backward
+
+
 def run_cell(arch: str, shape: str, serve_param_dtype: str = "bfloat16",
              microbatches: int = 0, device="cuda", mesh: str = "one",
-             by_op: bool = False) -> dict:
+             by_op: bool = False, counted_as_reference: bool = False
+             ) -> dict:
     """The reference's ``run_cell``: the cell's config (serve cells with
     ``serve_param_dtype`` parameters), its sharding mode (the reference's
     per-arch mode, ``dp`` falling back to ``tp_fsdp`` for serve cells) and
@@ -589,7 +676,9 @@ def run_cell(arch: str, shape: str, serve_param_dtype: str = "bfloat16",
     where the mode is recorded only), or as rank 0 of the reference's
     ``pod`` (16x16) or ``multipod`` (2x16x16) mesh in that mode.  With
     ``by_op``, ``by_op`` holds the largest entries of ``count``'s
-    breakdown (``BY_OP_KEPT`` of each), largest first."""
+    breakdown (``BY_OP_KEPT`` of each), largest first.  With
+    ``counted_as_reference``, traced ``as_reference`` (recorded as
+    ``"as_reference": true``)."""
     cell = SHAPES[shape]
     cfg = get_config(arch)
     mode = MODE_OVERRIDES.get(arch, "tp_fsdp")
@@ -608,11 +697,13 @@ def run_cell(arch: str, shape: str, serve_param_dtype: str = "bfloat16",
     result = {"arch": arch, "shape": shape, "mesh": name, "mode": mode,
               "kind": cell.kind, "n_devices": 1 if m is None else m.size,
               "microbatches": microbatches,
-              "device": str(torch.device(device))}
+              "device": str(torch.device(device)),
+              "as_reference": counted_as_reference}
     t0 = time.perf_counter()
-    blocks = trace_cell(cfg, Cell(cell.kind, cell.global_batch,
-                                  cell.seq_len), device, microbatches,
-                        m, mode, by_op)
+    with as_reference() if counted_as_reference else contextlib.nullcontext():
+        blocks = trace_cell(cfg, Cell(cell.kind, cell.global_batch,
+                                      cell.seq_len), device, microbatches,
+                            m, mode, by_op)
     if by_op:
         blocks["by_op"] = {k: dict(sorted(v.items(), key=lambda kv: -kv[1])
                                    [:BY_OP_KEPT])
@@ -641,6 +732,10 @@ def main(argv=None):
     ap.add_argument("--by-op", action="store_true",
                     help="also write each cell's FLOPs and peak-live bytes "
                     "by op (``by_op``)")
+    ap.add_argument("--as-reference", action="store_true",
+                    help="trace as the reference's compiled step computes "
+                    "(``as_reference``): masked kv blocks and a prefill's "
+                    "every logit counted")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     meshes = {"both": ["pod", "multipod"]}.get(args.mesh, [args.mesh])
@@ -659,7 +754,8 @@ def main(argv=None):
                 print(f"=== {arch} x {shape} x {mesh} ===", flush=True)
                 try:
                     res = run_cell(arch, shape, device=device, mesh=mesh,
-                                   by_op=args.by_op)
+                                   by_op=args.by_op,
+                                   counted_as_reference=args.as_reference)
                     print(json.dumps(res["memory_per_device"]), flush=True)
                     print(json.dumps(res["hlo"]), flush=True)
                 except Exception as e:  # noqa: BLE001 - recorded per cell

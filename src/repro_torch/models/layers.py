@@ -317,14 +317,17 @@ def _attend(q, k, v, **kw):
     is the sum over the heads' axes of each rank's share (``_kv_group``).
     Where the q heads are not split (``sharding.heads_split`` names the
     mesh dims that would split them), the ranks of those dims split the
-    work instead: with a gradient, the rows of every q chunk
-    (``_own_rows``: each rank its share, zeros on the others' rows, the
-    output and the gradients of q, k and v summed over those dims); for
-    one new token (a decode step), the keys (``_split_keys``: each rank
-    its slice of the cache's slots, the softmax's partial sums merged by
-    collectives).  A prefill keeps every row on every rank.
-    Each split needs its extent to divide the rows of a chunk or the
-    slots; on a mesh of extent 1 there is none."""
+    work instead: for a step of more than one row, the rows of every q
+    chunk, as the reference's chunk constraint splits them (a kv group
+    over its pair of ranks), padded to whole chunks split evenly as the
+    reference pads them; in train each rank its share, zeros on the
+    others' rows, the output and the gradients of q, k and v summed over
+    those dims (``_own_rows``, ``_kv_group``); in a prefill each rank's
+    share gathered in order (``_rows_gathered``).  For one new token (a
+    decode step), the keys (``_split_keys``: each rank its slice of the
+    cache's slots, the softmax's partial sums merged by collectives),
+    where the extent divides the slots.  On a mesh of extent 1 there is
+    no split."""
     if not sharding.is_dtensor(q):
         return flash_attention(q, k, v, **kw)
     from torch.distributed.tensor import Partial, Shard
@@ -341,10 +344,18 @@ def _attend(q, k, v, **kw):
         group = sharding.kv_group(q.shape, k.shape)
         dims, n, part = (group[0], group[1], group[3]) if group else \
             sharding.heads_split()
-        rows = grad and _rows_divide(q.shape[1], kw.get("q_chunk", 512), n)
+        rows = n > 1 and q.shape[1] > 1
         summed = [tuple(Partial() if i in dims else p for i, p in
                         enumerate(pl)) for pl in (qp, kvp)]
-        if group is not None:
+        if rows and not grad:
+            # a prefill: each rank's rows, gathered in order (the
+            # reference's compile moves its split rows before ``wo``)
+            groups = k.shape[2] if group else 1
+            fn = functools.partial(
+                _rows_gathered, groups=groups, j=group[2] if group else 0,
+                part=part, parts=n,
+                group=sharding._group(mesh, dims), **kw)
+        elif group is not None:
             fn = functools.partial(_kv_group, j=group[2],
                                    rep=q.shape[2] // k.shape[2], c=n,
                                    part=part, rows=rows, **kw)
@@ -372,30 +383,66 @@ def _attend(q, k, v, **kw):
     return sharding._moved(core(q, k, v), qp)
 
 
-def _rows_divide(Sq: int, q_chunk: int, parts: int) -> bool:
-    """Whether ``parts`` ranks can each take an equal share of the rows of
-    every q chunk (``_own_rows``): whole chunks, each split evenly."""
-    q_chunk = min(q_chunk, Sq)
-    return parts > 1 and Sq % q_chunk == 0 and q_chunk % parts == 0
-
-
-def _own_rows(q, k, v, *, part: int, parts: int, q_chunk: int = 512,
-              q_offset: int = 0, **kw):
+def _share(q, k, v, *, part: int, parts: int, q_chunk: int = 512,
+           q_offset: int = 0, **kw):
     """The attention of share ``part`` of ``parts`` of the rows of every q
-    chunk, zeros on the other rows: rows ``part * sub + [0, sub)`` of each
-    chunk of ``q_chunk`` (sub = q_chunk / parts), the reference's split
-    of each chunk's rows over 'model' (its ``qcs`` constraint).  Summed
-    over the shares, each row counts once, exactly (x + 0 is x); only the
-    share's rows reach its gradient of ``q``.  ``_chunk_masked`` skips the
-    blocks that none of the share's rows sees."""
-    Sq = q.shape[1]
+    chunk: rows ``part * sub + [0, sub)`` of each chunk of ``q_chunk``
+    (sub = q_chunk / parts, rounded up), the reference's split of each
+    chunk's rows over 'model' (its ``qcs`` constraint).  ``q`` is padded
+    with zero rows to whole chunks, and each chunk to ``parts * sub``
+    rows, as the reference pads ``q`` and GSPMD the split dim; the padded
+    rows are computed, for the caller to drop.  ``_chunk_masked`` skips
+    the blocks that none of the share's rows sees.  Returns (the share's
+    rows (B, nq * sub, H, Dh), (nq, sub, q_chunk))."""
+    B, Sq, H, Dh = q.shape
     q_chunk = min(q_chunk, Sq)
-    sub = q_chunk // parts
-    rows = (torch.arange(Sq // q_chunk, device=q.device)[:, None] * q_chunk
-            + part * sub + torch.arange(sub, device=q.device)).reshape(-1)
-    out = flash_attention(q[:, rows], k, v, q_chunk=sub, q_step=q_chunk,
-                          q_offset=q_offset + part * sub, **kw)
-    return torch.zeros_like(q).index_copy(1, rows, out)
+    nq, sub = -(-Sq // q_chunk), -(-q_chunk // parts)
+    lo = part * sub
+    chunks = F.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - Sq)).reshape(
+        B, nq, q_chunk, H, Dh)
+    mine = F.pad(chunks, (0, 0, 0, 0, 0, parts * sub - q_chunk))[
+        :, :, lo:lo + sub].reshape(B, nq * sub, H, Dh)
+    out = flash_attention(mine, k, v, q_chunk=sub, q_step=q_chunk,
+                          q_offset=q_offset + lo, **kw)
+    return out, (nq, sub, q_chunk)
+
+
+def _own_rows(q, k, v, *, part: int, parts: int, **kw):
+    """``_share``'s rows in place, zeros on the other rows and on the
+    padding.  Summed over the shares, each row counts once, exactly (x + 0
+    is x); only the share's rows reach its gradient of ``q``."""
+    B, Sq, H, Dh = q.shape
+    out, (nq, sub, q_chunk) = _share(q, k, v, part=part, parts=parts, **kw)
+    out = F.pad(out.reshape(B, nq, sub, H, Dh),
+                (0, 0, 0, 0, part * sub, (parts - part - 1) * sub))
+    return out[:, :, :q_chunk].reshape(B, nq * q_chunk, H, Dh)[:, :Sq]
+
+
+def _rows_gathered(q, k, v, *, groups: int, j: int, part: int, parts: int,
+                   group, **kw):
+    """No gradient (a prefill): kv group ``j`` of ``groups`` (its kv heads
+    and their q heads; one group is every head) on share ``part`` of
+    ``parts`` of the rows of every q chunk (``_share``), all-gathered over
+    ``group``, whose ranks are ordered (kv group, share), and put back in
+    the order of the rows and heads, the padding dropped.  Every rank ends
+    with the whole output, having sent only its share: the reference's
+    compile moves the split rows so (an all-to-all before ``wo``), where
+    a zero-filled output summed over the ranks would move all of it from
+    each."""
+    import torch.distributed._functional_collectives as funcol
+
+    B, Sq, Hq, Dh = q.shape
+    hq, hk = Hq // groups, k.shape[2] // groups
+    out, (nq, sub, q_chunk) = _share(
+        q[:, :, j * hq:(j + 1) * hq], k[:, :, j * hk:(j + 1) * hk],
+        v[:, :, j * hk:(j + 1) * hk], part=part, parts=parts, **kw)
+    # ``all_gather_single`` is ``all_gather_tensor``'s newer name
+    gather = getattr(funcol, "all_gather_single", None) or \
+        funcol.all_gather_tensor
+    whole = gather(out.contiguous(), 0, group).reshape(
+        groups, parts, B, nq, sub, hq, Dh).permute(2, 3, 1, 4, 0, 5, 6)
+    whole = whole.reshape(B, nq, parts * sub, Hq, Dh)[:, :, :q_chunk]
+    return whole.reshape(B, nq * q_chunk, Hq, Dh)[:, :Sq]
 
 
 def _split_keys(q, k, v, *, lo: int, group, causal: bool, window: int = 0,
@@ -440,9 +487,10 @@ def _kv_group(q, k, v, *, j: int, rep: int, c: int, part: int, rows: bool,
               **kw):
     """A rank's share where ``c`` ranks share each kv head: its kv head
     ``j`` with that head's ``rep`` q heads, zeros on the other heads.
-    With ``rows`` (a gradient is wanted), its share ``part`` of the rows
-    of every q chunk (``_own_rows``), zeros on the others'; else all the
-    rows, scaled by 1/c.  Summed over the ranks each group counts once,
+    With ``rows`` (a step of more than one row: train or prefill), its
+    share ``part`` of the rows of every q chunk (``_own_rows``), zeros on
+    the others'; else (one row, a decode step) that row, scaled by 1/c.
+    Summed over the ranks each group counts once,
     exactly (``sharding.kv_group`` gives c = 2: x/2 + x/2 is x, and both
     ranks of a group compute the same)."""
     lo = j * rep

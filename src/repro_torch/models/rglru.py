@@ -117,7 +117,9 @@ def _rglru_sharded(cfg, p, x, state, layout):
     whole), runs the conv, the gates' nonlinearity and the recurrence on
     them (``local_map``), and multiplies by its rows of ``w_y``.  The
     gate products (``("mlp", "mlp2")``) contract each rank's channels: a
-    partial sum, reduce-scattered back onto the channels; ``w_y``'s is
+    partial sum, reduce-scattered back onto the channels, their outputs
+    split over a mesh dim that the rows leave idle as the reference's are
+    (``_gate_weight``); ``w_y``'s is
     reduced by the output's constraint, as the MLP's is.  The new state is
     gathered into the cache's layout (channels whole)."""
     from torch.distributed.tensor import Replicate, Shard
@@ -142,8 +144,10 @@ def _rglru_sharded(cfg, p, x, state, layout):
         device_mesh=mesh, redistribute_inputs=True)
     u, new_conv = conv(*conv_in)
 
-    gate_i = sharding.redistribute(u @ p["w_input_gate"].to(dt), layout)
-    gate_a = sharding.redistribute(u @ p["w_a_gate"].to(dt), layout)
+    gate_i = sharding.redistribute(u @ _gate_weight(p["w_input_gate"], run)
+                                   .to(dt), layout)
+    gate_a = sharding.redistribute(u @ _gate_weight(p["w_a_gate"], run)
+                                   .to(dt), layout)
     rec_in = [p["lam"], gate_i, gate_a, u] + ([state["h"]] if state else [])
     rec_pl = [vec, run, run, run] + ([st_h] if state else [])
     rec = local_map(
@@ -160,6 +164,29 @@ def _rglru_sharded(cfg, p, x, state, layout):
         return y, {"h": h_last, "conv": new_conv}
     return y, {"h": sharding._moved(h_last, state["h"].placements),
                "conv": sharding._moved(new_conv, state["conv"].placements)}
+
+
+def _gate_weight(w, run):
+    """The gate's weight ``w`` (W, W) for a product with the channels laid
+    out by ``run``: its output columns split (a local slice) over the mesh
+    dims of extent above 1 that the mode's 'embed' rule maps to and that
+    split neither the rows nor the channels, where they divide W.  A batch
+    of one leaves 'data' so under ``tp_fsdp``, and the reference's compile
+    then splits the gates' outputs over it (``[160] <- [160]`` on
+    recurrentgemma-2b long_500k over pod), so each rank forms only its
+    share of them, and ``redistribute`` brings the product to the
+    channels' layout.  Elsewhere ``w`` itself."""
+    from torch.distributed.tensor import Shard
+
+    mesh = w.device_mesh
+    idle = [d for d in sharding._rule_dims(mesh, sharding.active()[1],
+                                           "embed")
+            if mesh.size(d) > 1 and not run[d].is_shard()
+            and not w.placements[d].is_shard()]
+    if not idle or w.shape[1] % math.prod(mesh.size(d) for d in idle):
+        return w
+    return sharding._moved(w, tuple(Shard(1) if d in idle else p_
+                                    for d, p_ in enumerate(w.placements)))
 
 
 def init_rglru_state(cfg, batch: int, device=None):

@@ -8,7 +8,7 @@ write one JSON per cell, ``<arch>__<shape>__<mesh>.json``:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
       --device cpu --out PORT_DIR
   PYTHONPATH=src python tests/dryrun_sweep_compare.py REF_DIR PORT_DIR \\
-      [--markdown] [--card CARD_DIR]
+      [--markdown] [--card CARD_DIR] [--as-ref AS_REF_DIR]
 
 prints one row per cell: ok or the error on each side, the mode and
 microbatches, rank 0's dot FLOPs on both sides and their ratio, temp and
@@ -18,7 +18,15 @@ trace seconds of a sweep on the card), and whether the cell is held
 (``HELD``): the port runs wherever the reference compiles, its FLOPs are
 within 0.8-1.25x of the reference's and its peak-live bytes at most 2.0x.
 Collective bytes are printed, not held: the two packages' collectives
-are not the same ops kind for kind.
+are not the same ops kind for kind.  With ``--as-ref``, a directory of
+the port's cells traced ``--as-reference`` (``repro_torch.launch.dryrun
+--as-reference``: the attention's masked kv blocks and a prefill's every
+logit counted, as the reference computes), each such cell also gets
+that reading, and a prefill cell among them is held by it: its
+as-reference FLOPs within the bounds, its peak (the port's own trace's)
+at most the bound.  A prefill is where the two count differently, so a
+raw reading there can hide a rank's repeated work (or show a gap that
+is only counting).
 
   PYTHONPATH=src python tests/dryrun_sweep_compare.py --reference-dots \\
       ARCH SHAPE MESH [--top N]
@@ -28,6 +36,9 @@ the reference's module sets up for 512 host devices) and prints its dot
 FLOPs by shapes, each scaled by the trip counts of the loops around it as
 ``repro.launch.hlo_parse`` scales them; the port's side of the same
 breakdown is ``repro_torch.launch.dryrun --by-op``.
+``--reference-collectives ARCH SHAPE MESH`` prints the same cell's
+collectives so: each kind and output shape with its operand bytes a step
+(``hlo_parse``'s collective bytes) and its count a step.
 
   PYTHONPATH=src python tests/dryrun_sweep_compare.py --as-reference \\
       ARCH SHAPE MESH REF_DIR
@@ -103,9 +114,10 @@ def compare(ref: dict, port: dict) -> dict:
     return row
 
 
-def rows(ref_dir: Path, port_dir: Path, card_dir=None):
+def rows(ref_dir: Path, port_dir: Path, card_dir=None, as_ref_dir=None):
     ref, port = load(ref_dir), load(port_dir)
     card = load(card_dir) if card_dir else {}
+    as_ref = load(as_ref_dir) if as_ref_dir else {}
     for key in sorted(set(ref) | set(port)):
         missing = {"error": "no file"}
         row = compare(ref.get(key, missing), port.get(key, missing))
@@ -113,7 +125,24 @@ def rows(ref_dir: Path, port_dir: Path, card_dir=None):
             c = card.get(key, missing)
             row["card_trace_s"] = ("error" if "error" in c
                                    else c["hlo"].get("trace_s"))
+        if key in as_ref and row.get("ref_flops"):
+            held_as_reference(row, as_ref[key])
         yield key, row
+
+
+def held_as_reference(row: dict, res: dict) -> None:
+    """``row`` given the cell's trace counted as the reference counts
+    (``res``): its FLOPs and their ratio to the reference's, and for a
+    prefill cell, ``held`` by that ratio and the row's own peak."""
+    if "error" in res:
+        row["as_ref_flops"] = row["as_ref_ratio"] = None
+        return
+    row["as_ref_flops"] = res["hlo"]["per_device_flops"]
+    row["as_ref_ratio"] = row["as_ref_flops"] / row["ref_flops"]
+    if res.get("kind") == "prefill":
+        row["held"] = (FLOPS_BOUNDS[0] <= row["as_ref_ratio"]
+                       <= FLOPS_BOUNDS[1]
+                       and row["peak_ratio"] <= PEAK_BOUND)
 
 
 def _fmt(x, spec=".3e"):
@@ -126,8 +155,13 @@ def main(argv=None) -> int:
                     help="the reference's sweep directory, the port's")
     ap.add_argument("--card", default=None,
                     help="a port sweep traced on the card: its trace s")
+    ap.add_argument("--as-ref", default=None,
+                    help="the port's cells traced --as-reference: their "
+                    "FLOPs, and a prefill cell held by them")
     ap.add_argument("--markdown", action="store_true")
     ap.add_argument("--reference-dots", nargs=3,
+                    metavar=("ARCH", "SHAPE", "MESH"))
+    ap.add_argument("--reference-collectives", nargs=3,
                     metavar=("ARCH", "SHAPE", "MESH"))
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--as-reference", nargs=4,
@@ -148,15 +182,23 @@ def main(argv=None) -> int:
               f"{'within' if within else 'outside'} the bounds")
         return 0
     if args.reference_dots:
-        for flops, where in reference_dots(*args.reference_dots)[:args.top]:
+        for flops, where in hlo_dots(reference_hlo(
+                *args.reference_dots))[:args.top]:
             print(f"{flops:.3e}  {where}")
+        return 0
+    if args.reference_collectives:
+        for nbytes, count, what in hlo_collectives(reference_hlo(
+                *args.reference_collectives))[:args.top]:
+            print(f"{nbytes:.3e} B  {count:g}x  {what}")
         return 0
     if len(args.dirs) != 2:
         ap.error("give the reference's sweep directory and the port's")
     cols = ["cell", "ref", "port", "mode", "mb", "ref FLOPs", "port FLOPs",
             "ratio", "ref temp B", "port temp B", "ref peak B",
             "port peak B", "ratio", "ref collective B", "port collective B",
-            "trace s"] + (["card trace s"] if args.card else []) + ["held"]
+            "trace s"] + (["card trace s"] if args.card else []) + (
+                ["as-ref FLOPs", "as-ref ratio"] if args.as_ref else []) + [
+                "held"]
     sep = " | " if args.markdown else "  "
     if args.markdown:
         print("| " + sep.join(cols) + " |")
@@ -165,7 +207,8 @@ def main(argv=None) -> int:
         print(sep.join(cols))
     n_held = n = 0
     for (arch, shape, mesh), r in rows(Path(args.dirs[0]),
-                                       Path(args.dirs[1]), args.card):
+                                       Path(args.dirs[1]), args.card,
+                                       args.as_ref):
         n += 1
         n_held += r["held"]
         cells = [f"{arch} {shape} {MESH_NAMES.get(mesh, mesh)}",
@@ -181,6 +224,9 @@ def main(argv=None) -> int:
                  _fmt(r.get("trace_s"), "")]
         if args.card:
             cells.append(_fmt(r.get("card_trace_s"), ""))
+        if args.as_ref:
+            cells += [_fmt(r.get("as_ref_flops")),
+                      _fmt(r.get("as_ref_ratio"), ".3f")]
         cells.append("HELD" if r["held"] else "NOT HELD")
         print(("| " + sep.join(cells) + " |") if args.markdown
               else sep.join(cells))
@@ -189,34 +235,14 @@ def main(argv=None) -> int:
 
 
 def as_reference(arch: str, shape: str, mesh: str) -> dict:
-    """``repro_torch.launch.dryrun.run_cell`` on the CPU with the
-    attention computing its masked kv blocks and a prefill's head running
-    on every position (the logits of the last kept), as the reference's
-    compiled step does; the port's values do not change (a masked block
-    adds p = 0), only what it computes."""
+    """``repro_torch.launch.dryrun.run_cell`` on the CPU, traced as the
+    reference's compiled step computes (``dryrun.as_reference``: the
+    attention's masked kv blocks, a prefill's head on every position);
+    the port's values do not change, only what it computes."""
     from repro_torch.launch import dryrun
-    from repro_torch.models import layers, lm
 
-    full = {}
-    trunk, head, masked = lm._trunk, lm._head, layers._chunk_masked
-
-    def trunk_kept(*a, **k):
-        out = trunk(*a, **k)
-        full["x"] = out[0]
-        return out
-
-    def head_all(cfg, params, x):
-        whole = full.pop("x", None)
-        if whole is not None and x.shape[1] == 1 < whole.shape[1]:
-            return head(cfg, params, whole)[:, -1:]
-        return head(cfg, params, x)
-
-    lm._trunk, lm._head = trunk_kept, head_all
-    layers._chunk_masked = lambda *a: False
-    try:
-        return dryrun.run_cell(arch, shape, device="cpu", mesh=mesh)
-    finally:
-        lm._trunk, lm._head, layers._chunk_masked = trunk, head, masked
+    return dryrun.run_cell(arch, shape, device="cpu", mesh=mesh,
+                           counted_as_reference=True)
 
 
 # ---------------------------------------------------------------------------
@@ -303,10 +329,54 @@ def hlo_dots(text: str):
     return sorted(((f, k) for k, f in out.items()), key=lambda t: -t[0])
 
 
-def reference_dots(arch: str, shape: str, mesh: str):
-    """Compile the reference's dry-run cell and return ``hlo_dots`` of
-    its optimized HLO (the module forces 512 host devices on import, so
-    this runs in a process of its own)."""
+def hlo_collectives(text: str):
+    """[(operand bytes a step, count a step, "kind [out shape]"), ...] of
+    every collective in the optimized HLO ``text``, bytes as
+    ``hlo_parse`` counts them (its operands' bytes), each instruction
+    scaled by the trip counts of the loops around it, summed over equal
+    descriptions, largest first."""
+    from repro.launch.hlo_parse import (_COLLECTIVES, _SHAPE_RE,
+                                        _shape_bytes, parse_hlo)
+
+    mult = _multipliers(parse_hlo(text))
+    header_re = re.compile(r"^(ENTRY\s+)?%?([\w\.\-]+)\s*\(.*\)\s*->.*{")
+    instr_re = re.compile(r"^\s+(ROOT\s+)?%?([\w\.\-]+)\s*=\s*(.*)$")
+    out = defaultdict(lambda: [0.0, 0.0])
+    cur, sizes = None, {}
+    for raw in text.splitlines():
+        m = header_re.match(raw)
+        if m:
+            cur, sizes = m.group(2), {}
+            continue
+        im = instr_re.match(raw) if cur else None
+        if not im:
+            continue
+        name, rest = im.group(2), im.group(3)
+        opm = re.search(r"\)?\s*([a-z][a-z0-9\-]*)\(", rest)
+        kind = opm.group(1) if opm else ""
+        head = rest[:opm.start(1)] if opm else rest  # the output shape(s)
+        sizes[name] = sum(_shape_bytes(dt, dims)[1]
+                          for dt, dims in _SHAPE_RE.findall(head))
+        if kind not in _COLLECTIVES:
+            continue
+        args_m = re.search(r"\((.*?)\)(,|$)", rest)
+        operands = re.findall(r"%([\w\.\-]+)", args_m.group(1)) \
+            if args_m else []
+        nbytes = sum(sizes.get(o, 0) for o in operands) or sizes[name]
+        found = _SHAPE_RE.findall(head)
+        shapes = f"{len(found)} x {found[0][0]}[{found[0][1]}]" if found \
+            else "?"
+        key = out[f"{kind} {shapes}"]
+        key[0] += nbytes * mult.get(cur, 0.0)
+        key[1] += mult.get(cur, 0.0)
+    return sorted(((b, n, k) for k, (b, n) in out.items()),
+                  key=lambda t: -t[0])
+
+
+def reference_hlo(arch: str, shape: str, mesh: str) -> str:
+    """Compile the reference's dry-run cell and return its optimized HLO
+    (the module forces 512 host devices on import, so this runs in a
+    process of its own)."""
     import repro.launch.dryrun as ref
 
     seen = {}
@@ -321,7 +391,7 @@ def reference_dots(arch: str, shape: str, mesh: str):
         ref.run_cell(arch, shape, mesh == "multipod")
     finally:
         ref.summarize = summarize
-    return hlo_dots(seen["hlo"])
+    return seen["hlo"]
 
 
 if __name__ == "__main__":

@@ -45,6 +45,7 @@ import subprocess
 import sys
 import time
 import weakref
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -759,11 +760,14 @@ def serve_rows(cfg, params, mesh, mode: str, rows: int,
     cache = lm.init_cache(cfg, rows, _cache_len(cfg), "cpu")
     if mesh is not None:
         cache = place_cache(cfg, cache, mesh)
-    last, cache = prefill(params, batch, cache)
+    with phase("prefill"):
+        last, cache = prefill(params, batch, cache)
     lasts = [last]
-    for _ in range(steps):
-        last, cache = decode(params, torch.argmax(last, -1)[:, None], cache)
-        lasts.append(last)
+    with phase("decode"):
+        for _ in range(steps):
+            last, cache = decode(params, torch.argmax(last, -1)[:, None],
+                                 cache)
+            lasts.append(last)
     return np.stack([_full(x) for x in lasts])
 
 
@@ -785,25 +789,53 @@ def _layout_run(cfg, host, mesh, mode: str, rows: int,
         params = distribute(params, specs, mesh, mode)
     logits = serve_rows(cfg, params, mesh, mode, rows, steps=serve[1],
                         prompt=serve[0], strict=strict)
-    _, _, losses, gnorms = train(cfg, params, opt, mesh, mode, steps=1,
-                                 strict=strict)
+    with phase("train"):
+        _, _, losses, gnorms = train(cfg, params, opt, mesh, mode, steps=1,
+                                     strict=strict)
     return {"logits": logits, "loss": np.asarray(losses),
             "grad_norm": np.asarray(gnorms)}
 
 
+# the step that ``attended`` counts for: "prefill" and "decode" inside
+# ``serve_rows``, "train" elsewhere
+PHASES = ("prefill", "decode", "train")
+_PHASE = ["train"]
+Q_CHUNK = 512  # the attention's q chunk (``layers.flash_attention``)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Count the attention's triples inside as ``name``'s."""
+    prev, _PHASE[0] = _PHASE[0], name
+    try:
+        yield
+    finally:
+        _PHASE[0] = prev
+
+
+def row_share(rows: int, parts: int) -> Fraction:
+    """The share of one device's (row, head, key) triples in a step of
+    ``rows`` rows that one of ``parts`` ranks splitting its rows runs
+    (``layers._share``): each q chunk's rows padded up to a multiple of
+    ``parts``."""
+    q_chunk = min(Q_CHUNK, rows)
+    return Fraction(-(-q_chunk // parts), q_chunk)
+
+
 @contextlib.contextmanager
 def attended(count: list):
-    """Adds to ``count[0]`` the (q row, q head, key) triples of every
-    block of q rows that the attention's forward runs in this process
-    (``layers._chunk_online``, by its operands' shapes: a rank's rows and
-    its keys)."""
+    """Adds to ``count[PHASES.index(step)]`` the (q row, q head, key)
+    triples of every block of q rows that the attention's forward runs in
+    this process during each step (``phase``): ``layers._chunk_online``,
+    by its operands' shapes, a rank's rows and its keys."""
     from repro_torch.models import layers
 
     inner = layers._chunk_online
 
     def counted(q, k, v, cfgt, qi, scale):
         B, _, Hkv, rep, _ = q.shape
-        count[0] += B * Hkv * rep * cfgt.q_chunk * k.shape[1]
+        count[PHASES.index(_PHASE[0])] += (B * Hkv * rep * cfgt.q_chunk
+                                           * k.shape[1])
         return inner(q, k, v, cfgt, qi, scale)
 
     layers._chunk_online = counted
@@ -833,7 +865,7 @@ def layout_rank(rank: int, world: int, out: str, model: str, shape,
         cfg = cfg_of(model, **over)
         mesh = device_mesh(Mesh(("data", "model"), tuple(shape)), "cpu")
         host = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        count = [0]
+        count = [0] * len(PHASES)
         with attended(count):
             got = _layout_run(cfg, host, mesh, mode, rows, serve, strict)
         if rank == 0:
@@ -892,7 +924,7 @@ def serve_modes(tmp: Path, model: str, shape, modes, rows: int,
 
 
 def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
-                 rows: int, serve=(PROMPT, DECODES), split: int = 0,
+                 rows: int, serve=(PROMPT, DECODES), split=0,
                  strict: bool = True, **over) -> None:
     """``model`` (its smoke config with ``over``) from ``lm.init``'s
     weights, served for ``rows`` prompts (``serve``: their length and
@@ -901,7 +933,9 @@ def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
     equal the reference's on the same mesh (a subprocess of ``script``
     with 4 host devices, from the same weights) and one device's, within
     ``TOL``.  With ``split``, rank 0's attention ran exactly 1/``split``
-    of the (row, head, key) triples one device's ran (``attended``).
+    of the (row, head, key) triples one device's ran (``attended``) in
+    each step, or, given a dict, each step's share (a Fraction) of
+    ``PHASES``' steps it names.
     ``strict`` as for ``serve_rows``."""
     import torch.multiprocessing as mp
     from repro_torch.models import lm
@@ -921,7 +955,7 @@ def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
                                                     serve, strict),
                                  nprocs=4, join=False, start_method="spawn"),
               deadline)
-        alone = [0]
+        alone = [0] * len(PHASES)
         with attended(alone):
             one = _layout_run(cfg, host, None, mode, rows, serve)
         _finish(ref, deadline)
@@ -934,9 +968,12 @@ def check_layout(script: Path, tmp: Path, model: str, shape, mode: str,
         for key in one:
             np.testing.assert_allclose(got[key], want[key], rtol=TOL,
                                        atol=TOL, err_msg=f"{key}, {name}")
-    if split:
-        assert int(got["attended"][0]) * split == alone[0], (
-            int(got["attended"][0]), alone[0])
+    shares = (split if isinstance(split, dict) else
+              dict.fromkeys(PHASES, Fraction(1, split)) if split else {})
+    for step, share in shares.items():
+        i = PHASES.index(step)
+        assert int(got["attended"][i]) == alone[i] * share, (
+            step, int(got["attended"][i]), alone[i], share)
 
 
 def run_all(script: Path, out: Path, models) -> Path:

@@ -7,12 +7,16 @@ The smoke ssm, hybrid and moe configs (bf16 parameters, as the dry-run
 serves) on 4 ranks, (1, 4) and (2, 2), in the reference's modes for
 them: ``tp_fsdp`` for the ssm's and the hybrid's serve cells, ``tp_ep``
 for the moe; and on (1, 4) in ``tp_fsdp``, heads that cannot go 1:1 to
-'model': the hybrid's decode and train step with 6 q heads and 1 kv
-head, and a train step of the dense yi-34b with 6 q and 2 kv heads (a kv
-head to 2 ranks); and on (4, 1) in ``tp_fsdp`` the smoke dense
-qwen1.5-0.5b's prefill and decode, whose weights split 'embed' over
-'data' as the batch is: there the port's rank 0 also reduces nothing
-that the reference's compile does not (its collective bytes by kind).
+'model': the hybrid's decode, prefill and train step with 6 q heads and
+1 kv head, and a prefill and a train step of the dense yi-34b with 6 q
+and 2 kv heads (a kv head to 2 ranks), the prefills also counted as the
+reference counts (``dryrun.as_reference``); on (2, 2) in ``tp_fsdp``
+the hybrid's decode of one row, whose RG-LRU gates form the share of
+their outputs the reference's do; and on (4, 1) in ``tp_fsdp`` the
+smoke dense qwen1.5-0.5b's prefill and decode, whose weights split
+'embed' over 'data' as the batch is: there the port's rank 0 also
+reduces nothing that the reference's compile does not (its collective
+bytes by kind).
 The port's rank 0 is traced over a fake group of 4
 (``launch.dryrun.trace_step``); the reference's step is jit'd as its
 dry-run compiles it (a train step: loss, gradients and AdamW), on 4 host
@@ -28,6 +32,7 @@ reduce-scattered what the reference never reduces.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -50,6 +55,7 @@ ARCH = {"ssm": "mamba2-130m", "hybrid": "recurrentgemma-2b",
 # 56 and 8: a kv head to 2 ranks, ``sharding.kv_group``)
 UNSPLIT = {"n_heads": 6, "n_kv_heads": 1}
 GROUPED = {"n_heads": 6, "n_kv_heads": 2}
+C19 = ("hybrid", "decode", 1, 64, (2, 2), "tp_fsdp", {"rglru_dim": 512})
 # (model, kind, batch, sequence or cache length, mesh (data, model), mode,
 # overrides of the smoke config)
 CASES = [("ssm", "decode", 2, 64, (1, 4), "tp_fsdp", {}),
@@ -63,11 +69,19 @@ CASES = [("ssm", "decode", 2, 64, (1, 4), "tp_fsdp", {}),
           dict(UNSPLIT, window=1024)),
          ("hybrid", "train", 2, 256, (1, 4), "tp_fsdp", UNSPLIT),
          ("dense", "train", 2, 512, (1, 4), "tp_fsdp", GROUPED),
+         # and a prefill's ranks their rows of every q chunk, gathered
+         ("hybrid", "prefill", 2, 256, (1, 4), "tp_fsdp", UNSPLIT),
+         ("dense", "prefill", 2, 512, (1, 4), "tp_fsdp", GROUPED),
          # 'embed' over 'data' as the batch is, 'model' of extent 1: each
          # rank forms its own rows with every weight's 'embed' gathered
          # (``sharding.whole_along``, ``lm._rows_beside``)
          ("qwen", "prefill", 8, 64, (4, 1), "tp_fsdp", {}),
-         ("qwen", "decode", 8, 72, (4, 1), "tp_fsdp", {})]
+         ("qwen", "decode", 8, 72, (4, 1), "tp_fsdp", {}),
+         # a batch of one leaves 'data' idle: the RG-LRU gates' outputs
+         # split over it, as the reference's are (C19; its channels
+         # widened to 512 so that the gates' products have a shape of
+         # their own, ``rglru._gate_weight``)
+         C19]
 # the collectives that sum partial products
 SUMS = ("all-reduce", "reduce-scatter")
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -124,10 +138,13 @@ def _reference(cases) -> dict:
 
 
 def _counts(compiled, summarize) -> tuple:
+    from dryrun_sweep_compare import hlo_dots
+
     mem = compiled.memory_analysis()
-    hlo = summarize(compiled.as_text())
+    text = compiled.as_text()
+    hlo = summarize(text)
     return (hlo.flops, mem.argument_size_in_bytes + mem.temp_size_in_bytes,
-            hlo.collective_bytes)
+            hlo.collective_bytes, hlo_dots(text))
 
 
 def _config(get, model: str, kind: str, over: dict):
@@ -199,12 +216,30 @@ def _of(reference, case):
                          ids=["-".join(map(str, c[:2] + c[4:5])) + f"-{c[5]}"
                               for c in CASES])
 def test_rank0_is_held_against_the_reference_compile(reference, case):
-    ref_flops, ref_peak, _ = _of(reference, case)
+    ref_flops, ref_peak = _of(reference, case)[:2]
     res = _port(*case)
     flops = res["hlo"]["per_device_flops"] / ref_flops
     peak = res["memory_per_device"]["peak_live_bytes"] / ref_peak
     assert FLOPS_BOUNDS[0] <= flops <= FLOPS_BOUNDS[1], (flops, peak)
     assert peak <= PEAK_BOUND, (flops, peak)
+
+
+PREFILLS = [c for c in CASES if c[1] == "prefill" and c[6]]
+
+
+@pytest.mark.parametrize("case", PREFILLS, ids=[c[0] for c in PREFILLS])
+def test_prefill_rank0_counted_as_the_reference_counts_is_held(reference,
+                                                               case):
+    """C22: where the heads cannot go 1:1 to 'model', a prefill's ranks
+    split the rows of every q chunk as the reference's do.  Counted as the
+    reference counts (``dryrun.as_reference``: the attention's masked kv
+    blocks and every position's logits), rank 0's FLOPs are the
+    reference's: 1.455x (the hybrid) and 1.500x (the kv group) when each
+    rank ran every row."""
+    with dryrun.as_reference():
+        res = _port(*case)
+    flops = res["hlo"]["per_device_flops"] / _of(reference, case)[0]
+    assert FLOPS_BOUNDS[0] <= flops <= FLOPS_BOUNDS[1], flops
 
 
 FSDP_ROWS = [c for c in CASES if c[0] == "qwen"]
@@ -226,6 +261,41 @@ def test_rank0_sums_no_partial_products_the_reference_does_not(reference,
     for kind in SUMS:
         if not ref.get(kind):
             assert not coll.get(kind), (kind, coll, ref)
+
+
+def _outputs(dots, k: int) -> int:
+    """The most output elements of one product contracting ``k``, over
+    ``dots``: (FLOPs, description) of ``hlo_dots`` ("... [out] <- [lhs]
+    k=K") or ``by_op``'s FLOPs keys ("aten.mm MxK KxN")."""
+    most = 0
+    for _, key in dots:
+        if "<-" in key:
+            out, kk = key.split("[")[1].split("]")[0], key.split("k=")[-1]
+            n = math.prod(int(x) for x in out.split("x") if x)
+        elif key.startswith("aten.mm "):
+            (m, kk), (_, n) = (x.split("x") for x in key.split()[1:3])
+            n = int(m) * int(n)
+        else:
+            continue
+        if int(kk) == k:
+            most = max(most, n)
+    return most
+
+
+def test_rank0_gates_form_the_share_of_outputs_the_reference_does(
+        reference):
+    """C19: a batch of one over (2, 2) in ``tp_fsdp`` leaves 'data' idle,
+    and the reference's compile splits the RG-LRU gates' outputs over it:
+    each device contracts its 256 of the 512 channels into 256 outputs.
+    So rank 0's products contracting its channels form at most as many
+    outputs as the reference's, where it once formed all 512 of each
+    gate (``mm 1x256 256x512``)."""
+    k = C19[6]["rglru_dim"] // C19[4][1]
+    ref = _outputs(_of(reference, C19)[3], k)
+    res = _port(*C19, by_op=True)
+    got = _outputs([(f, key) for key, f in res["by_op"]["flops"].items()],
+                   k)
+    assert 0 < got <= ref, (got, ref)
 
 
 def test_moe_rank_routes_its_rows_only():
